@@ -1,0 +1,132 @@
+"""Mixed-batch ragged paged attention: the wrapper of the Hopper kernel.
+
+``mixed_paged_attention`` is the port of the JAX package's Pallas kernel of
+the same name (``kernels/paged_attention.py``): one call per packed serving
+step, every segment (a decode row or a prefill chunk) a causal block of
+queries over its own paged KV prefix. On a CPU tensor it runs the plain
+version (``kernels.ref.mixed_attention_ref``); on a CUDA tensor it launches
+``csrc/mixed_paged_attention.cu`` or raises — it never falls back.
+
+The CUDA kernel runs one CTA per (q-tile, KV head). A q-tile is up to
+``64 // G`` consecutive rows of one segment; the tile list is built from
+``cu_q_lens`` on the host (``q_tiles``) by the caller, once per step in the
+engine, so the 32 layers of a step reuse one device copy and a launch never
+waits on the device. ``mixed_paged_attention.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import mixed_attention_ref
+
+M_MAX = 64  # query vectors per CTA (csrc/mixed_paged_attention.cu)
+HEAD_DIMS = (16, 32, 64, 128)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def q_tile_rows(group: int) -> int:
+    """Rows per q-tile for ``group`` query heads per KV head."""
+    if not 1 <= group <= M_MAX:
+        raise ValueError(f"GQA group {group} outside the kernel's 1..{M_MAX}")
+    return M_MAX // group
+
+
+def q_tiles(cu_q_lens: np.ndarray, group: int) -> np.ndarray:
+    """(n_tiles, 2) int32 ``(segment, first row)``: each segment's rows cut
+    into tiles of ``q_tile_rows(group)``; zero-width segments get none."""
+    qt = q_tile_rows(group)
+    cu = np.asarray(cu_q_lens, np.int64)
+    tiles = [(s, r) for s in range(len(cu) - 1) for r in range(cu[s], cu[s + 1], qt)]
+    return np.asarray(tiles, np.int32).reshape(-1, 2)
+
+
+@functools.cache
+def _launcher():
+    """The kernel's C entry point, built and loaded on first use, with its
+    ctypes signature (every pointer and the stream as c_void_p)."""
+    lib = _build.load("mixed_paged_attention")
+    fn = lib.mixed_paged_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 \
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = lib.mixed_paged_attention_error_string
+    err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
+    return fn, err
+
+
+def _check(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables):
+    if q.dim() != 4 or k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(f"want q (N,KV,G,d) and k/v pages (P,page,KV,d) of one shape; got "
+                         f"{tuple(q.shape)}, {tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    N, KV, G, d = q.shape
+    if k_pages.shape[2] != KV or k_pages.shape[3] != d:
+        raise ValueError(f"pages {tuple(k_pages.shape)} do not match q {tuple(q.shape)}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    S = kv_lens.shape[0] if kv_lens.dim() == 1 else -1
+    if cu_q_lens.shape != (S + 1,) or block_tables.dim() != 2 or block_tables.shape[0] != S:
+        raise ValueError(f"want cu_q_lens (S+1,), kv_lens (S,), block_tables (S,nb); got "
+                         f"{tuple(cu_q_lens.shape)}, {tuple(kv_lens.shape)}, "
+                         f"{tuple(block_tables.shape)}")
+    for name, t in (("cu_q_lens", cu_q_lens), ("kv_lens", kv_lens),
+                    ("block_tables", block_tables)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages),
+                    ("cu_q_lens", cu_q_lens), ("kv_lens", kv_lens),
+                    ("block_tables", block_tables)):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *,
+                          window: Optional[int] = None, softcap: Optional[float] = None,
+                          tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """q: (N, KV, G, d) packed rows, segments contiguous in ``cu_q_lens``
+    order; k/v_pages: (P, page, KV, d); cu_q_lens: (S+1,) int32 row offsets;
+    kv_lens: (S,) int32 keys each segment's last row attends; block_tables:
+    (S, nb) int32 page ids. Returns (N, KV, G, d); rows at or after
+    ``cu_q_lens[-1]`` are padding, zero on the CPU and left unwritten on the
+    card. ``tiles`` is ``q_tiles(cu_q_lens, G)`` on q's device, required on
+    the card (the CPU path ignores it)."""
+    _check(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables)
+    if not q.is_cuda:
+        return mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
+                                   window=window, softcap=softcap)
+    N, KV, G, d = q.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    qt = q_tile_rows(G)
+    if tiles is None or tiles.dtype != torch.int32 or tiles.dim() != 2 \
+            or tiles.shape[1] != 2 or tiles.device != q.device or not tiles.is_contiguous():
+        raise ValueError("tiles must be q_tiles(cu_q_lens, G) as a contiguous (n_tiles, 2) "
+                         "int32 tensor on q's device")
+    out = torch.empty_like(q)
+    if tiles.shape[0] == 0:
+        return out
+    fn, err_string = _launcher()
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+             cu_q_lens.data_ptr(), kv_lens.data_ptr(), block_tables.data_ptr(),
+             tiles.data_ptr(), tiles.shape[0], KV, G, d, k_pages.shape[1],
+             block_tables.shape[1], qt, 1.0 / d**0.5,
+             0.0 if softcap is None else float(softcap),
+             0 if window is None else int(window), _DTYPE_CODES[q.dtype],
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"mixed_paged_attention launch failed: {err_string(err).decode()}")
+    mixed_paged_attention.launches += 1
+    return out
+
+
+mixed_paged_attention.launches = 0

@@ -1,0 +1,60 @@
+"""Parameter and page-pool bridge from the JAX package's trees.
+
+The JAX side hands over plain numpy (``jax.device_get`` of its pytrees), so
+this module never sees JAX. Period-stacked leaves — ``stack_init`` stacks
+each period position's parameters over the ``n_periods`` axis — are split
+back into one entry per layer, in layer order: the prefix layers first,
+then period ``c`` position ``i`` as layer ``n_prefix + c * period + i``.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+
+
+def _map(tree, fn: Callable[[Any], Any]):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _unstack_layers(stack, cfg: ModelConfig) -> List[Any]:
+    """``{"prefix": [...], "periods": {str(i): tree stacked over periods}}``
+    -> one tree per layer, in layer order."""
+    layers = list(stack["prefix"])
+    for c in range(cfg.n_periods):
+        for i in range(cfg.scan_period):
+            layers.append(_map(stack["periods"][str(i)], lambda a, c=c: np.asarray(a)[c]))
+    assert len(layers) == cfg.n_layers, (len(layers), cfg.n_layers)
+    return layers
+
+
+def _tensor(dtype, device):
+    return lambda a: torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
+
+
+def from_jax_params(tree, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"):
+    """``Model.init``'s parameter pytree (as numpy) -> the port's params."""
+    conv = _tensor(dtype, device)
+    params = {
+        "embed": conv(tree["embed"]),
+        "layers": [_map(layer, conv) for layer in _unstack_layers(tree["stack"], cfg)],
+        "final_norm": _map(tree["final_norm"], conv),
+    }
+    if "lm_head" in tree:
+        params["lm_head"] = conv(tree["lm_head"])
+    return params
+
+
+def pool_from_jax(cache, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"):
+    """The JAX engine's paged cache (as numpy: ``{"prefix": [...],
+    "periods": {str(i): {"k","v"} stacked over periods}}``, leaves
+    ``(pages, page, KV, d)``) -> the port's per-layer page pool list."""
+    conv = _tensor(dtype, device)
+    return [_map(layer, conv) for layer in _unstack_layers(cache, cfg)]
