@@ -4,21 +4,39 @@
     python3 chip_smoke.py
 
 Runs from a checkout of the repository, on a machine with a CUDA card and the
-CUDA toolkit; it needs no network. Phases, each printing one JSON line:
+CUDA toolkit; it needs no network. Phases, each printing JSON lines:
 
-  device         card, power limit, torch/CUDA versions; TF32 off for fp32 checks
-  build          nvcc builds every kernel of the port from src/repro_torch
-  kernel_parity  each kernel against its plain PyTorch version on the card, at
-                 the main path's shapes (Llama3.1-8B heads: KV 8, G 4, d 128,
-                 page 16) and at the reduced test shape, with times beside the
-                 card's bound and one PyTorch library call
-  reduced_serve  the engine at reduced width in fp32 on the card (kernel) and on
-                 the CPU (plain version): the same greedy tokens
-  engine_bf16    the engine in bf16 at Llama3.1-8B's attention heads, reduced
-                 depth and width: every attention call of the run against
-                 the plain version on the same bf16 tensors
-  serve          the port's Engine on Llama3.1-8B at full width, all 32 layers,
-                 bf16, seeded random weights: 8 requests, 32 new tokens each
+  device          card, power limit, torch/CUDA versions; TF32 off for fp32 checks
+  build           nvcc builds every kernel of the port from src/repro_torch, one
+                  process per source, all at once
+  kernel_parity   each kernel against its plain PyTorch version on the card, with
+                  NaN in every dead key, at the main paths' shapes (Llama3.1-8B
+                  heads: KV 8, G 4, d 128), at kernels_micro's shapes and at the
+                  reduced test shapes, with times beside the card's bound and one
+                  PyTorch library call: B1 mixed_paged_attention, B2
+                  paged_attention (pages of 1, 16 and max_len; the dense
+                  engine's decode-only and prefill-bearing steps), B3
+                  decode_attention, B4 flash_attention
+  reduced_serve   the paged engine at reduced width in fp32 on the card (kernel)
+                  and on the CPU (plain version): the same greedy tokens
+  engine_bf16     the engine in bf16 at Llama3.1-8B's attention heads, reduced
+                  depth and width: every attention call of the run against
+                  the plain version on the same bf16 tensors
+  reduced_serial  reduced width, fp32, on the card: serial per-request prefill +
+                  decode (B4, B3), the paged engine (B1) and the dense engine (B2)
+                  give the same greedy tokens, and the CPU's serial run too
+  serve           the port's Engine (paged, B1) on Llama3.1-8B at full width, all
+                  32 layers, bf16, seeded random weights: 8 requests, 32 new
+                  tokens each; then a profiled window (serve_profile)
+  serve_dense     the same workload through attn_kernel="dense" (B2), after a
+                  checked pass (serve_dense_check): every layer's B2 call of one
+                  prefill-bearing and one decode-only step against the plain
+                  version on the same bf16 tensors
+  serial          the same 8 requests served one at a time (B4 prefill, B3
+                  decode): the paper's serial baseline, and serve's speed-up
+                  over it
+  micro           kernels_micro's two comparisons at its full shapes: dense (B3)
+                  vs ragged paged (B2) decode, unified mixed (B1) vs per-token (B2)
 
 then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and, last, {"ok": true, "device": {...}}. Any failure raises: the
@@ -46,6 +64,17 @@ BF16_ROW = (2.0**-7, 2e-2)
 FAULT_MARGIN = 3.0  # dropping softcap or window must break the check this many times over
 SERVE = dict(requests=8, prompt_lo=512, prompt_hi=4096, max_new=32, chunk=512,
              max_batch=8, max_prefills=2, page=16, max_len=8192)
+# every kernel of the port: its source and the TPU kernel it replaces
+KERNELS = {
+    "mixed_paged_attention": ("src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
+                              "src/repro/kernels/paged_attention.py:268"),
+    "paged_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                        "src/repro/kernels/paged_attention.py:119"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:92"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:97"),
+}
 
 
 def emit(obj) -> None:
@@ -141,9 +170,9 @@ def work(case):
     return nbytes, flops
 
 
-def bound_ms(case):
-    nbytes, flops = work(case)
-    dtype = str(case["q"].dtype).replace("torch.", "")
+def bound_of(nbytes, flops, dtype):
+    """The least time the card could take: bytes over its memory rate or
+    operations over its peak rate for ``dtype``, whichever is larger."""
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = flops / H100_PEAK_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -166,6 +195,43 @@ def time_ms(torch, fn, reps, warmup=2):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def device_ms(torch, fn, reps, warmup=2):
+    """Mean device time of ``fn``: the summed duration of the kernels it
+    launches, from torch.profiler (CUDA activity), each run after a 128 MB
+    L2 flush whose kernel (``bitwise_not``) is left out. Unlike ``time_ms``
+    it excludes the host's time to enqueue the call, which for a kernel of
+    tens of microseconds is most of a lone call's span. Falls back to
+    ``time_ms`` (and says so) if the trace shows no device time. Returns
+    (ms, how, {kernel name: ms per call})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(32 * 2**20, dtype=torch.int32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    parts = {e.key[:60]: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "bitwise_not" not in e.key.lower() and e.self_device_time_total > 0}
+    if not parts:
+        return time_ms(torch, fn, reps, warmup), "events", {}
+    return sum(parts.values()), "profiler", parts
+
+
+def timings(torch, kernel, plain, library, reps):
+    """Device times of the kernel, its plain version and the library call,
+    and the kernel's event-timed span (host enqueue included)."""
+    k_ms, how, parts = device_ms(torch, kernel, reps)
+    p_ms = device_ms(torch, plain, 2, warmup=1)[0]
+    l_ms = device_ms(torch, library, reps)[0]
+    return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, timing=how,
+                kernel_parts=parts, kernel_event_ms=time_ms(torch, kernel, reps))
 
 
 def library_call(torch, case):
@@ -228,7 +294,30 @@ def tol_used(got, plain, dtype):
     return float((err / allow).max())
 
 
-def run_case(torch, name, case, *, timed):
+def parity_record(torch, name, kernel, dtype, got, plain, faults, shape):
+    """The parity record of one case: ``got`` (the kernel's live rows) and
+    ``plain`` (the plain version's, fp32) have rows on their first axis;
+    ``faults`` are plain outputs with the softcap or the window dropped,
+    which the check must reject ``FAULT_MARGIN`` times over."""
+    real = got.float()
+    finite = bool(torch.isfinite(real).all())
+    used = tol_used(real, plain, dtype)
+    fault_used = {k: tol_used(f, plain, dtype) for k, f in faults.items()}
+    return dict(phase="kernel_parity", case=name, kernel=kernel, dtype=dtype, shape=shape,
+                max_abs_err=float((real - plain).abs().max()),
+                plain_rms=float(plain.pow(2).mean().sqrt()), tol_used=used,
+                fault_tol_used=fault_used, finite=finite,
+                ok=finite and used <= 1 and all(u >= FAULT_MARGIN for u in fault_used.values()))
+
+
+def finish(rec):
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"kernel_parity {rec['case']}: {rec}")
+    return rec
+
+
+def run_case(torch, name, case):
     from repro_torch.kernels.paged_attention import mixed_paged_attention
     from repro_torch.kernels.ref import mixed_attention_ref
 
@@ -242,41 +331,28 @@ def run_case(torch, name, case, *, timed):
     plain_args = (*(a.float() for a in args[:3]), *args[3:])
     plain = mixed_attention_ref(*plain_args, **kw)
     n = case["n_real"]
-    real, plain = got[:n].float(), plain[:n]
-    finite = bool(torch.isfinite(real).all())
-    used = tol_used(real, plain, dtype)
     # the check must see a kernel that ignored the softcap or the window
     faults = {}
     if cap is not None:
-        faults["no_softcap"] = mixed_attention_ref(*plain_args, window=w)
+        faults["no_softcap"] = mixed_attention_ref(*plain_args, window=w)[:n]
     if w is not None:
-        faults["no_window"] = mixed_attention_ref(*plain_args, softcap=cap)
-    fault_used = {k: tol_used(f[:n], plain, dtype) for k, f in faults.items()}
-    rec = dict(phase="kernel_parity", case=name, kernel="mixed_paged_attention", dtype=dtype,
-               shape=dict(rows=n, segments=len(case["segs"]), kv=case["q"].shape[1],
-                          g=case["q"].shape[2], d=case["q"].shape[3], page=case["page"],
-                          window=w, softcap=cap),
-               max_abs_err=float((real - plain).abs().max()),
-               plain_rms=float(plain.pow(2).mean().sqrt()), tol_used=used,
-               fault_tol_used=fault_used, finite=finite,
-               ok=finite and used <= 1 and all(u >= FAULT_MARGIN for u in fault_used.values()))
-    if timed:
-        b, by = bound_ms(case)
-        call, rows = library_call(torch, case)
-        lib_err = float((rows(call()).float() - plain).abs().max())
-        rec.update(
-            kernel_ms=time_ms(torch, lambda: mixed_paged_attention(*args, **kw,
-                                                                   tiles=case["tiles"]), reps=20),
-            plain_ms=time_ms(torch, lambda: mixed_attention_ref(*args, **kw), reps=3,
-                             warmup=1),
-            bound_ms=b, bound_by=by, library_ms=time_ms(torch, call, reps=10),
-            library="torch.nn.functional.scaled_dot_product_attention (padded batch, "
-                    "boolean mask, KV pre-gathered)",
-            library_max_abs_err=lib_err)
-    emit(rec)
-    if not rec["ok"]:
-        raise AssertionError(f"kernel_parity {name}: {rec}")
-    return rec
+        faults["no_window"] = mixed_attention_ref(*plain_args, softcap=cap)[:n]
+    rec = parity_record(torch, name, "mixed_paged_attention", dtype, got[:n], plain[:n], faults,
+                        dict(rows=n, segments=len(case["segs"]), kv=case["q"].shape[1],
+                             g=case["q"].shape[2], d=case["q"].shape[3], page=case["page"],
+                             window=w, softcap=cap))
+    nbytes, flops = work(case)
+    b, by = bound_of(nbytes, flops, dtype)
+    call, rows = library_call(torch, case)
+    lib_err = float((rows(call()).float() - plain[:n]).abs().max())
+    rec.update(
+        **timings(torch, lambda: mixed_paged_attention(*args, **kw, tiles=case["tiles"]),
+                  lambda: mixed_attention_ref(*args, **kw), call, reps=10),
+        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+        library="torch.nn.functional.scaled_dot_product_attention (padded batch, "
+                "boolean mask, KV pre-gathered)",
+        library_max_abs_err=lib_err)
+    return finish(rec)
 
 
 def kernel_parity(torch):
@@ -288,27 +364,388 @@ def kernel_parity(torch):
     mixed = [(1, int(c)) for c in np.linspace(1024, 4096, 8)] + [(512, 4096 + 512)]
     small = [(1, 37), (1, 300), (64, 64 + 700), (17, 17), (1, 1)]
     cases = [
-        ("decode16_bf16", 1, decode16, dict(llama, dtype=bf16), True),
-        ("mixed_bf16", 2, mixed, dict(llama, dtype=bf16), True),
-        ("decode16_fp32", 3, decode16, dict(llama, dtype=f32), False),
-        ("mixed_fp32", 4, mixed, dict(llama, dtype=f32), False),
-        ("page1_fp32", 5, small, dict(llama, page=1, dtype=f32), False),
-        ("page1_bf16", 6, small, dict(llama, page=1, dtype=bf16), False),
+        ("decode16_bf16", 1, decode16, dict(llama, dtype=bf16)),
+        ("mixed_bf16", 2, mixed, dict(llama, dtype=bf16)),
+        ("decode16_fp32", 3, decode16, dict(llama, dtype=f32)),
+        ("mixed_fp32", 4, mixed, dict(llama, dtype=f32)),
+        ("page1_fp32", 5, small, dict(llama, page=1, dtype=f32)),
+        ("page1_bf16", 6, small, dict(llama, page=1, dtype=bf16)),
         # caps of 3-5 bend unit-normal scores (a cap of 50 would not)
         ("window_softcap_bf16", 7, mixed,
-         dict(llama, dtype=bf16, window=1024, softcap=3.0), False),
+         dict(llama, dtype=bf16, window=1024, softcap=3.0)),
         ("window_softcap_fp32", 8, small,
-         dict(llama, dtype=f32, window=100, softcap=5.0), False),
-        ("reduced_d16_fp32", 9, small, dict(kv=2, g=2, d=16, page=4, dtype=f32), False),
+         dict(llama, dtype=f32, window=100, softcap=5.0)),
+        ("reduced_d16_fp32", 9, small, dict(kv=2, g=2, d=16, page=4, dtype=f32)),
         ("reduced_d16_bf16", 10, small, dict(kv=2, g=2, d=16, page=4, dtype=bf16,
-                                              window=16, softcap=3.0), False),
-        ("d32_g8_fp32", 11, small, dict(kv=1, g=8, d=32, page=8, dtype=f32), False),
-        ("d64_g1_bf16", 12, small, dict(kv=4, g=1, d=64, page=8, dtype=bf16), False),
+                                              window=16, softcap=3.0)),
+        ("d32_g8_fp32", 11, small, dict(kv=1, g=8, d=32, page=8, dtype=f32)),
+        ("d64_g1_bf16", 12, small, dict(kv=4, g=1, d=64, page=8, dtype=bf16)),
     ]
     recs = {}
-    for name, seed, segs, kw, timed in cases:
+    for name, seed, segs, kw in cases:
         case = make_case(torch, seed, segs, **kw)
-        recs[name] = run_case(torch, name, case, timed=timed)
+        recs[name] = run_case(torch, name, case)
+        del case
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# kernel_parity: B2 paged_attention, B3 decode_attention (one query per row)
+# ---------------------------------------------------------------------------
+
+
+def _live_range(length, window):
+    """Keys [lo, length) a row at position length - 1 reads."""
+    return (0 if window is None else max(0, length - window)), length
+
+
+def row_case(torch, seed, lengths, *, kv, g, d, dtype, cap, page=None, window=None,
+             softcap=None):
+    """One query per row. ``page=None``: B3's dense caches (N, cap, KV, d).
+    Else B2's pool of ``cap // page`` pages per row, shuffled, plus a scratch
+    page that every dead table entry names (``page == cap`` is the dense
+    engine's layout: each row's cache one page). Every dead key — past a
+    row's length, left of its window, in unused pages — holds NaN. Values
+    drawn on the card from the seed; tables from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    N = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    live = np.zeros((N, cap), bool)
+    for n, L in enumerate(lengths):
+        lo, hi = _live_range(L, window)
+        live[n, lo:hi] = True
+    q = torch.randn((N, kv, g, d), generator=gen, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if page is None:
+        k = torch.randn((N, cap, kv, d), generator=gen, device="cuda")
+        v = torch.randn((N, cap, kv, d), generator=gen, device="cuda")
+        dead = torch.from_numpy(~live).cuda()
+        k[dead], v[dead] = float("nan"), float("nan")
+        tables = None
+    else:
+        nb = cap // page
+        P = N * nb + 1  # the last page is the scratch page
+        tables = rng.permutation(N * nb).astype(np.int32).reshape(N, nb)
+        used = live.reshape(N, nb, page).any(-1)
+        tables[~used] = P - 1
+        pool_live = np.zeros((P, page), bool)
+        pool_live[tables[used]] = live.reshape(N, nb, page)[used]
+        k = torch.randn((P, page, kv, d), generator=gen, device="cuda")
+        v = torch.randn((P, page, kv, d), generator=gen, device="cuda")
+        dead = torch.from_numpy(~pool_live).cuda()
+        k[dead], v[dead] = float("nan"), float("nan")
+        tables = torch.from_numpy(tables).cuda()
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), lens=lens, tables=tables,
+                lengths=list(lengths), live=live, window=window, softcap=softcap, page=page,
+                cap=cap)
+
+
+def dense_step_case(torch, seed, segs, *, kv, g, d, dtype, cap):
+    """A dense-engine step's B2 inputs: segment s, (q_len, kv_len), owns
+    slot s of a (len(segs) + 1, cap, KV, d) slot cache (the last slot is the
+    scratch slot) and gives q_len rows, row j at position kv_len - q_len + j,
+    each reading its slot as one page of ``cap`` tokens (table [[s]]).
+    Every key past a slot's kv_len, and the whole scratch slot, holds NaN.
+    Carries the rows (for B2 and its plain version) and the segments (for
+    the bound and the library call)."""
+    import numpy as np
+
+    n_seg = len(segs)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn((n_seg + 1, cap, kv, d), generator=gen, device="cuda")
+    v = torch.randn((n_seg + 1, cap, kv, d), generator=gen, device="cuda")
+    for s, (_, kvl) in enumerate(segs):
+        k[s, kvl:], v[s, kvl:] = float("nan"), float("nan")
+    k[n_seg], v[n_seg] = float("nan"), float("nan")
+    slots = np.array([s for s, (ql, _) in enumerate(segs) for _ in range(ql)], np.int32)
+    lengths = [kvl - ql + j + 1 for ql, kvl in segs for j in range(ql)]
+    q = torch.randn((len(lengths), kv, g, d), generator=gen, device="cuda")
+    cu = np.zeros(n_seg + 1, np.int32)
+    cu[1:] = np.cumsum([ql for ql, _ in segs])
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
+                lens=t(np.asarray(lengths, np.int32)), tables=t(slots[:, None]),
+                lengths=lengths, live=np.arange(cap)[None, :] < np.asarray(lengths)[:, None],
+                window=None, softcap=None, page=cap, cap=cap, segs=segs, cu=t(cu),
+                seg_tables=t(np.arange(n_seg, dtype=np.int32)[:, None]), n_real=len(lengths))
+
+
+def paged_ref_rows(q, k_pages, v_pages, lengths, tables, rows=32, **kw):
+    """``paged_attention_ref`` over ``rows`` rows at a time: it gathers each
+    row's pages, and over a prefill chunk's ~1000 rows with pages of
+    ``max_len`` tokens one call would gather tens of GiB."""
+    import torch
+
+    from repro_torch.kernels.ref import paged_attention_ref
+
+    return torch.cat([paged_attention_ref(q[i:i + rows], k_pages, v_pages, lengths[i:i + rows],
+                                          tables[i:i + rows], **kw)
+                      for i in range(0, q.shape[0], rows)])
+
+
+def row_work(case):
+    """Bytes (live keys read once, q read and out written once) and
+    operations (4 G d per query head group and live key) of a row case."""
+    _, kv, g, d = case["q"].shape
+    elem = case["q"].element_size()
+    keys = int(case["live"].sum())
+    nbytes = keys * kv * d * 2 * elem + 2 * case["q"].numel() * elem
+    return nbytes, 4 * keys * kv * g * d
+
+
+def row_library(torch, case):
+    """``scaled_dot_product_attention`` over the same rows as one padded
+    batch (row x heads x 1 query x longest live span) with a boolean mask,
+    each row's live keys pre-gathered (outside the timed call), zeroed where
+    padded, and expanded to the query heads."""
+    import torch.nn.functional as F
+
+    q, k, v = case["q"], case["k"], case["v"]
+    N, KV, G, d = q.shape
+    spans = [_live_range(L, case["window"]) for L in case["lengths"]]
+    Lmax = max(hi - lo for lo, hi in spans)
+    idx = torch.zeros((N, Lmax), dtype=torch.long)
+    ok = torch.zeros((N, Lmax), dtype=torch.bool)
+    for n, (lo, hi) in enumerate(spans):
+        j = torch.arange(lo, hi)
+        if case["page"] is None:
+            idx[n, :hi - lo] = n * case["cap"] + j
+        else:
+            idx[n, :hi - lo] = case["tables"][n].cpu().long()[j // case["page"]] \
+                * case["page"] + j % case["page"]
+        ok[n, :hi - lo] = True
+    idx, ok = idx.cuda(), ok.cuda()
+    flat_k, flat_v = k.reshape(-1, KV, d), v.reshape(-1, KV, d)
+    kb = torch.where(ok[..., None, None], flat_k[idx], 0).transpose(1, 2)  # (N, KV, L, d)
+    vb = torch.where(ok[..., None, None], flat_v[idx], 0).transpose(1, 2)
+    kb, vb = kb.repeat_interleave(G, 1).contiguous(), vb.repeat_interleave(G, 1).contiguous()
+    qb = q.reshape(N, KV * G, 1, d)
+    mask = ok[:, None, None, :]
+
+    def call():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+
+    return call, lambda o: o.reshape(N, KV, G, d)
+
+
+def run_row_case(torch, name, case):
+    from repro_torch.kernels.decode_attention import decode_attention, split_count
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    dtype = str(case["q"].dtype).replace("torch.", "")
+    w, cap = case["window"], case["softcap"]
+    q, k, v, lens, tabs = case["q"], case["k"], case["v"], case["lens"], case["tables"]
+    if tabs is None:
+        kernel_name = "decode_attention"
+        call = lambda **kw: decode_attention(q, k, v, lens, **kw)  # noqa: E731
+        plain = lambda k, v, **kw: decode_attention_ref(  # noqa: E731
+            q.float(), k.float(), v.float(), lens, **kw)
+    else:
+        kernel_name = "paged_attention"
+        call = lambda **kw: paged_attention(q, k, v, lens, tabs, **kw)  # noqa: E731
+        plain = lambda k, v, **kw: paged_ref_rows(  # noqa: E731
+            q.float(), k.float(), v.float(), lens, tabs, **kw)
+    got = call(window=w, softcap=cap)
+    torch.cuda.synchronize()
+    expect = plain(k, v, window=w, softcap=cap)
+    # the faults read keys left of the window, which hold NaN: zero them there
+    k0, v0 = k.float().nan_to_num(), v.float().nan_to_num()
+    faults = {}
+    if cap is not None:
+        faults["no_softcap"] = plain(k0, v0, window=w)
+    if w is not None:
+        faults["no_window"] = plain(k0, v0, softcap=cap)
+    N, KV, G, d = q.shape
+    rec = parity_record(torch, name, kernel_name, dtype, got, expect, faults,
+                        dict(rows=N, kv=KV, g=G, d=d, cap=case["cap"], page=case["page"],
+                             len_min=min(case["lengths"]), len_max=max(case["lengths"]),
+                             window=w, softcap=cap,
+                             n_split=split_count(N * KV, case["cap"] if tabs is None
+                                                 else tabs.shape[1] * case["page"])))
+    if "segs" in case:  # a dense-engine step: segments share their slot's keys
+        nbytes, flops = work(case)
+        lib, rows = library_call(torch, dict(case, tables=case["seg_tables"]))
+        lib_name = ("torch.nn.functional.scaled_dot_product_attention (padded segment "
+                    "batch, boolean mask, KV pre-gathered)")
+    else:
+        nbytes, flops = row_work(case)
+        lib, rows = row_library(torch, case)
+        lib_name = ("torch.nn.functional.scaled_dot_product_attention (padded rows, "
+                    "boolean mask, live keys pre-gathered, no softcap)")
+    b, by = bound_of(nbytes, flops, dtype)
+    rec.update(**timings(torch, lambda: call(window=w, softcap=cap),
+                         lambda: plain(k, v, window=w, softcap=cap), lib, reps=20),
+               bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, library=lib_name,
+               library_max_abs_err=float((rows(lib()).float() - expect).abs().max()))
+    return finish(rec)
+
+
+# ---------------------------------------------------------------------------
+# kernel_parity: B4 flash_attention
+# ---------------------------------------------------------------------------
+
+
+def flash_case(torch, seed, B, S, *, kv, g, d, dtype, window=None, softcap=None, cache=None):
+    """Prompts of S tokens over themselves. K/V are the first S rows of a
+    (B, cache, KV, d) cache whose other rows hold NaN, read through the view's
+    strides as the serial prefill reads them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    cache = cache or S
+    q = torch.randn((B, S, kv * g, d), generator=gen, device="cuda")
+    kc = torch.full((B, cache, kv, d), float("nan"), device="cuda")
+    vc = kc.clone()
+    kc[:, :S] = torch.randn((B, S, kv, d), generator=gen, device="cuda")
+    vc[:, :S] = torch.randn((B, S, kv, d), generator=gen, device="cuda")
+    kc, vc = kc.to(dtype), vc.to(dtype)
+    return dict(q=q.to(dtype), k=kc[:, :S], v=vc[:, :S], window=window, softcap=softcap,
+                cache=cache)
+
+
+def flash_work(case):
+    B, S, H, d = case["q"].shape
+    kv = case["k"].shape[2]
+    elem = case["q"].element_size()
+    w = case["window"]
+    pairs = sum(i + 1 if w is None else min(i + 1, w) for i in range(S))
+    nbytes = (2 * B * S * H * d + 2 * B * S * kv * d) * elem
+    return nbytes, 4 * B * H * d * pairs
+
+
+def flash_library(torch, case):
+    """``scaled_dot_product_attention`` on the same prompts, K/V expanded to
+    the query heads (outside the timed call); causal, or a boolean mask for
+    a window; no softcap."""
+    import torch.nn.functional as F
+
+    q, k, v, w = case["q"], case["k"], case["v"], case["window"]
+    B, S, H, d = q.shape
+    G = H // k.shape[2]
+    qb = q.transpose(1, 2)
+    kb = k.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    vb = v.transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    mask = None
+    if w is not None:
+        i = torch.arange(S, device="cuda")
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - w)
+
+    def call():
+        if mask is None:
+            return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
+
+    return call, lambda o: o.transpose(1, 2)
+
+
+def run_flash_case(torch, name, case):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    dtype = str(case["q"].dtype).replace("torch.", "")
+    w, cap = case["window"], case["softcap"]
+    q, k, v = case["q"], case["k"], case["v"]
+    B, S, H, d = q.shape
+    rows = lambda o: o.reshape(B * S, H, d, 1)  # noqa: E731  (a token's heads are a row)
+    call = lambda **kw: flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda **kw: flash_attention_ref(q.float(), k.float(), v.float(), **kw)  # noqa: E731
+    got = call(window=w, softcap=cap)
+    torch.cuda.synchronize()
+    expect = rows(plain(window=w, softcap=cap))
+    faults = {}
+    if cap is not None:
+        faults["no_softcap"] = rows(plain(window=w))
+    if w is not None:
+        faults["no_window"] = rows(plain(softcap=cap))
+    rec = parity_record(torch, name, "flash_attention", dtype, rows(got), expect, faults,
+                        dict(batch=B, seq=S, kv=k.shape[2], g=H // k.shape[2], d=d,
+                             cache=case["cache"], window=w, softcap=cap))
+    nbytes, flops = flash_work(case)
+    b, by = bound_of(nbytes, flops, dtype)
+    lib, to_rows = flash_library(torch, case)
+    rec.update(**timings(torch, lambda: call(window=w, softcap=cap),
+                         lambda: plain(window=w, softcap=cap), lib, reps=10),
+               bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
+               library="torch.nn.functional.scaled_dot_product_attention (K/V expanded "
+                       "to the query heads, causal or window mask, no softcap)",
+               library_max_abs_err=float((rows(to_rows(lib())).float() - expect)
+                                         .abs().max()))
+    return finish(rec)
+
+
+def single_query_and_flash_parity(torch):
+    """B2, B3 and B4 cases: the main paths' shapes (the serial decode at
+    4096 of 8192, the dense engine's decode-only and prefill-bearing steps,
+    the serial prefill of a 4096-token prompt), kernels_micro's, the reduced model's, pages of 1,
+    16 and max_len, window and softcap; every case timed."""
+    import numpy as np
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    llama = dict(kv=8, g=4, d=128)
+    micro = dict(kv=2, g=4, d=64)  # benchmarks/kernels_micro.py: H 8, KV 2, d 64
+    spread = [int(x) for x in np.linspace(512, 8192, 8)]
+    micro_lens = [int(x) for x in np.linspace(64, 2048, 32)]  # kernels_micro's lengths
+    small = [1, 37, 300, 1024]
+    recs = {}
+    rows = [
+        # B3: one query per row over a dense cache
+        ("b3_serial_bf16", [4096], dict(llama, dtype=bf16, cap=8192)),
+        ("b3_batch_bf16", spread, dict(llama, dtype=bf16, cap=8192)),
+        ("b3_batch_fp32", spread, dict(llama, dtype=f32, cap=8192)),
+        ("b3_window_softcap_bf16", spread[:4], dict(llama, dtype=bf16, cap=4096, window=1024,
+                                                    softcap=3.0)),
+        ("b3_window_softcap_fp32", small, dict(llama, dtype=f32, cap=1024, window=100,
+                                               softcap=5.0)),
+        ("b3_micro_fp32", micro_lens, dict(micro, dtype=f32, cap=8192)),
+        ("b3_reduced_d16_fp32", [1, 5, 64], dict(kv=2, g=2, d=16, dtype=f32, cap=64)),
+        # B2: one query per row through a block table
+        ("b2_dense_engine_bf16", [512 + 509 * i for i in range(8)],
+         dict(llama, dtype=bf16, cap=8192, page=8192)),
+        ("b2_page16_bf16", spread, dict(llama, dtype=bf16, cap=8192, page=16)),
+        ("b2_page16_fp32", spread, dict(llama, dtype=f32, cap=8192, page=16)),
+        ("b2_page1_fp32", small, dict(llama, dtype=f32, cap=1024, page=1)),
+        ("b2_page1_bf16", small, dict(llama, dtype=bf16, cap=1024, page=1)),
+        ("b2_window_softcap_bf16", spread, dict(llama, dtype=bf16, cap=8192, page=16,
+                                                window=1024, softcap=3.0)),
+        ("b2_window_softcap_fp32", small, dict(llama, dtype=f32, cap=1024, page=1,
+                                               window=100, softcap=5.0)),
+        ("b2_micro_fp32", micro_lens, dict(micro, dtype=f32, cap=8192, page=128)),
+        ("b2_reduced_d16_fp32", [1, 5, 64], dict(kv=2, g=2, d=16, dtype=f32, cap=64,
+                                                 page=64)),
+    ]
+    for i, (name, lengths, kw) in enumerate(rows):
+        case = row_case(torch, 100 + i, lengths, **kw)
+        recs[name] = run_row_case(torch, name, case)
+        del case
+        torch.cuda.empty_cache()
+    # B2 on a prefill-bearing step of the dense engine, over a 9 x 8192 slot
+    # cache: the step's 512-token budget holds 6 decode rows, the last 235
+    # tokens of a 2795-token prompt and the first 271 of the next; 512 rows,
+    # so B2 runs unsplit
+    dense_step = [(1, n) for n in (600, 1100, 1650, 2300, 2900, 3590)] + [(235, 2795),
+                                                                          (271, 271)]
+    for i, (name, dtype) in enumerate((("b2_dense_prefill_bf16", bf16),
+                                       ("b2_dense_prefill_fp32", f32))):
+        case = dense_step_case(torch, 150 + i, dense_step, **llama, dtype=dtype, cap=8192)
+        recs[name] = run_row_case(torch, name, case)
+        del case
+        torch.cuda.empty_cache()
+    flashes = [
+        ("b4_prompt4096_bf16", 1, 4096, dict(llama, dtype=bf16, cache=8192)),
+        ("b4_prompt1000_bf16", 2, 1000, dict(llama, dtype=bf16)),
+        ("b4_prompt4096_fp32", 1, 4096, dict(llama, dtype=f32, cache=8192)),
+        ("b4_prompt1000_fp32", 2, 1000, dict(llama, dtype=f32)),
+        ("b4_window_softcap_bf16", 1, 1500, dict(llama, dtype=bf16, window=256, softcap=3.0)),
+        ("b4_window_softcap_fp32", 2, 300, dict(llama, dtype=f32, window=40, softcap=5.0)),
+        ("b4_micro_fp32", 1, 1024, dict(micro, dtype=f32)),  # kernels_micro.py:47
+        ("b4_reduced_d16_fp32", 2, 30, dict(kv=2, g=2, d=16, dtype=f32, cache=64)),
+        ("b4_g8_d64_bf16", 1, 777, dict(kv=2, g=8, d=64, dtype=bf16)),
+    ]
+    for i, (name, B, S, kw) in enumerate(flashes):
+        case = flash_case(torch, 200 + i, B, S, **kw)
+        recs[name] = run_flash_case(torch, name, case)
         del case
         torch.cuda.empty_cache()
     return recs
@@ -444,42 +881,148 @@ def engine_bf16(torch):
         raise AssertionError(f"engine_bf16: {rec}")
 
 
-def serve(torch, smi):
+def full_model(torch):
+    """Llama3.1-8B at full width, all 32 layers, bf16, weights drawn on the
+    card from seed 0; shared by serve, serve_dense and serial."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(get_config("llama3.1-8b"), dtype=torch.bfloat16, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    return model, params, dict(init_s=time.perf_counter() - t0,
+                               weight_gib=torch.cuda.memory_allocated() / 2**30)
+
+
+def serve_prompts(vocab):
+    """SERVE's seeded requests: prompt lengths, then each prompt's tokens."""
     import numpy as np
 
-    from repro_torch.configs import get_config
+    c = SERVE
+    rng = np.random.default_rng(0)
+    lens = rng.integers(c["prompt_lo"], c["prompt_hi"] + 1, c["requests"])
+    return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
+
+
+def reset_counts():
+    """Every kernel's launch count and every plain version's count of calls
+    on the card to 0, just before a main path runs."""
+    from repro_torch.kernels import decode_attention, flash_attention, paged_attention, ref
+
+    for fn in (paged_attention.mixed_paged_attention, paged_attention.paged_attention,
+               decode_attention.decode_attention, flash_attention.flash_attention):
+        fn.launches = 0
+    for fn in (ref.mixed_attention_ref, ref.paged_attention_ref, ref.decode_attention_ref,
+               ref.flash_attention_ref):
+        fn.cuda_calls = 0
+
+
+def read_counts():
+    """Each kernel's launches and all plain versions' calls on the card."""
+    from repro_torch.kernels import decode_attention, flash_attention, paged_attention, ref
+
+    launches = {fn.__name__: fn.launches for fn in (
+        paged_attention.mixed_paged_attention, paged_attention.paged_attention,
+        decode_attention.decode_attention, flash_attention.flash_attention)}
+    plain = sum(fn.cuda_calls for fn in (ref.mixed_attention_ref, ref.paged_attention_ref,
+                                          ref.decode_attention_ref, ref.flash_attention_ref))
+    return launches, plain
+
+
+def serve_engine(torch, model, params, attn_kernel):
+    """An engine with SERVE's settings and SERVE's requests submitted:
+    ``paged`` over a page pool sized by the launcher's rule, ``dense`` over
+    a slot cache. Returns (engine, pool pages, pool basis, prompt lengths)."""
     from repro_torch.core.scheduler import SchedulerConfig
-    from repro_torch.kernels.paged_attention import mixed_paged_attention
-    from repro_torch.kernels.ref import mixed_attention_ref
     from repro_torch.launch.serve import sized_kv_pool
-    from repro_torch.models import build_model
-    from repro_torch.serving.request import Request, State
+    from repro_torch.serving.request import Request
 
     c = SERVE
-    cfg = get_config("llama3.1-8b")
+    cfg = model.cfg
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
-    model = build_model(cfg, dtype=torch.bfloat16, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(0))
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    weight_bytes = torch.cuda.memory_allocated()
-    pool, basis = sized_kv_pool(cfg, dev, torch.bfloat16, c["max_batch"], c["max_len"],
-                                c["page"])
+    pool, basis = None, "dense slot cache"
+    if attn_kernel == "paged":
+        pool, basis = sized_kv_pool(cfg, dev, torch.bfloat16, c["max_batch"], c["max_len"],
+                                    c["page"])
     eng = _engine_class()(model, params, SchedulerConfig(
         chunk_size=c["chunk"], max_decode_batch=c["max_batch"],
         max_concurrent_prefills=c["max_prefills"], kv_block_size=c["page"],
-        num_kv_blocks=pool), max_len=c["max_len"], device=dev)
-    rng = np.random.default_rng(0)
-    lens = rng.integers(c["prompt_lo"], c["prompt_hi"] + 1, c["requests"])
-    for rid, n in enumerate(lens):
-        eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, int(n)).tolist(),
-                           max_new_tokens=c["max_new"]))
+        num_kv_blocks=pool), max_len=c["max_len"], attn_kernel=attn_kernel, device=dev)
+    prompts = serve_prompts(cfg.vocab_size)
+    for rid, prompt in enumerate(prompts):
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=c["max_new"]))
+    return eng, pool, basis, [len(p) for p in prompts]
+
+
+def dense_engine_check(torch, model, params):
+    """SERVE's workload through the dense engine at full width, checked
+    before ``serve_dense`` times it: every layer's B2 call of the first step
+    that carries prefill chunks beside decode rows with enough rows that B2
+    runs unsplit, and of the first decode-only step (a few rows, split over
+    keys and combined), is also computed by the plain version in fp32 from
+    the same bf16 tensors (the slot cache, lengths and tables) and held to
+    the bf16 row tolerance. Stops once both steps are checked."""
+    import repro_torch.core.packed_step as packed
+    from repro_torch.kernels.decode_attention import split_count
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    L = model.cfg.n_layers
+    eng, _, _, _ = serve_engine(torch, model, params, "dense")
+    steps = {"prefill": [], "decode": []}  # each checked call's record
+    state = dict(calls=0, kind=None)
+
+    def checked(q, k_cache, v_cache, lengths, tables, **kw):
+        out = paged_attention(q, k_cache, v_cache, lengths, tables, **kw)
+        N, KV = q.shape[:2]
+        n_split = split_count(N * KV, k_cache.shape[1])
+        if state["calls"] % L == 0:  # a step's first layer: is it one to check?
+            per_slot = torch.unique(tables[:, 0], return_counts=True)[1]
+            kind = ("decode" if int(per_slot.max()) == 1 else
+                    "prefill" if int(per_slot.min()) == 1 and n_split == 1 else None)
+            state["kind"] = kind if kind and not steps[kind] else None
+        state["calls"] += 1
+        if state["kind"]:
+            plain = paged_ref_rows(q.float(), k_cache.float(), v_cache.float(), lengths, tables,
+                                   **kw)
+            steps[state["kind"]].append(dict(
+                rows=N, n_split=n_split, tol_used=tol_used(out.float(), plain, "bfloat16")))
+        return out
+
+    packed.paged_attention = checked
+    try:
+        while eng.scheduler.has_work and not all(len(v) == L for v in steps.values()):
+            eng.step(now=float(eng.steps_run))
+    finally:
+        packed.paged_attention = paged_attention
+    rec = dict(phase="serve_dense_check", steps_run=eng.steps_run,
+               **{kind: dict(calls_checked=len(v), rows=v[0]["rows"] if v else None,
+                             n_split=v[0]["n_split"] if v else None,
+                             tol_used_max=max((c["tol_used"] for c in v), default=None))
+                  for kind, v in steps.items()})
+    rec["ok"] = (all(len(v) == L and max(c["tol_used"] for c in v) <= 1
+                     for v in steps.values()) and rec["decode"]["n_split"] > 1)
+    emit(rec)
+    del eng
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise AssertionError(f"serve_dense_check: {rec}")
+
+
+def serve(torch, smi, model, params, setup, attn_kernel="paged"):
+    """SERVE's workload through the engine: ``paged`` (B1, the main path;
+    then a profiled window) or ``dense`` (B2, the dense fallback)."""
+    import numpy as np
+
+    from repro_torch.serving.request import State
+
+    c = SERVE
+    cfg = model.cfg
+    eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mixed_paged_attention.launches = 0
-    mixed_attention_ref.cuda_calls = 0
+    reset_counts()
     step_ms, prefill_tok, decode_tok, has_prefill, step_tok = [], 0, 0, [], []
     t_run = time.perf_counter()
     while eng.scheduler.has_work and eng.steps_run < 2000:
@@ -494,8 +1037,9 @@ def serve(torch, smi):
         has_prefill.append(plan.total_prefill_tokens > 0)
         step_tok.append((plan.total_prefill_tokens, len(plan.decode_rids)))
     run_s = time.perf_counter() - t_run
-    launches = mixed_paged_attention.launches
-    plain_cuda = mixed_attention_ref.cuda_calls
+    counts, plain_cuda = read_counts()
+    kernel = "mixed_paged_attention" if attn_kernel == "paged" else "paged_attention"
+    launches = counts[kernel]
     reqs = [eng.scheduler.requests[r] for r in range(c["requests"])]
     done = all(r.state is State.DONE and len(r.output) == c["max_new"] for r in reqs)
     pre = [i for i, f in enumerate(has_prefill) if f]
@@ -503,12 +1047,12 @@ def serve(torch, smi):
     pre_s = sum(step_ms[i] for i in pre) / 1e3
     dec_s = sum(step_ms[i] for i in dec) / 1e3
     rec = dict(
-        phase="serve", arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
-        dtype="bfloat16", requests=c["requests"], prompt_lens=[int(x) for x in lens],
+        phase="serve" if attn_kernel == "paged" else "serve_dense", attn_kernel=attn_kernel,
+        arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        dtype="bfloat16", requests=c["requests"], prompt_lens=lens,
         max_new_tokens=c["max_new"], chunk=c["chunk"], max_decode_batch=c["max_batch"],
         max_concurrent_prefills=c["max_prefills"], kv_block=c["page"], max_len=c["max_len"],
-        pool_pages=pool, pool_basis=basis, weight_gib=weight_bytes / 2**30,
-        init_s=init_s, steps=eng.steps_run, run_s=run_s,
+        pool_pages=pool, pool_basis=basis, **setup, steps=eng.steps_run, run_s=run_s,
         prefill_tokens=prefill_tok, decode_tokens=decode_tok,
         # end to end: every token the run computed over its whole window
         tok_per_s=(prefill_tok + decode_tok) / run_s,
@@ -521,16 +1065,19 @@ def serve(torch, smi):
         prefill_step_ms=1e3 * pre_s / len(pre) if pre else None,
         decode_only_step_ms=1e3 * dec_s / len(dec) if dec else None,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
-        kernel_launches=launches, plain_cuda_calls=plain_cuda, nonfinite_logits=eng.nonfinite,
-        all_completed=done, preemptions=eng.scheduler.stats.preemptions, nvidia_smi=smi)
+        kernel=kernel, kernel_launches=launches, launches_by_kernel=counts,
+        plain_cuda_calls=plain_cuda, nonfinite_logits=eng.nonfinite,
+        all_completed=done, preemptions=eng.scheduler.stats.preemptions,
+        outputs=[r.output for r in reqs], nvidia_smi=smi)
     rec["ok"] = (done and launches == cfg.n_layers * eng.steps_run and plain_cuda == 0
                  and eng.nonfinite == 0)
     emit(rec)
     if not rec["ok"]:
-        raise AssertionError(f"serve: {rec}")
+        raise AssertionError(f"{rec['phase']}: {rec}")
     del eng
     torch.cuda.empty_cache()
-    profile_serve(torch, model, params)
+    if attn_kernel == "paged":
+        profile_serve(torch, model, params)
     return rec
 
 
@@ -593,6 +1140,231 @@ def profile_serve(torch, model, params):
               top_kernels=[dict(name=k[:120], ms=v) for k, v in top]))
 
 
+def reduced_serial(torch):
+    """Reduced llama3.1-8b in fp32 on the card: serial per-request prefill +
+    decode (B4, B3), the paged engine (B1) and the dense engine (B2) must
+    give the same greedy tokens (test_engine_matches_serial on the card),
+    and so must the serial run on the CPU (plain versions)."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.serial import serial_reference
+
+    cfg = reduce_config(get_config("llama3.1-8b"), periods=2)
+    cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    model = build_model(cfg, dtype=torch.float32, device="cuda")
+    cuda_params = _to(params, "cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 30)]
+    new, max_len = 12, 64
+    outs, launches = {}, {}
+    outs["serial_cpu"] = [serial_reference(cpu_model, params, p, new, max_len=max_len)
+                          for p in prompts]
+    reset_counts()
+    outs["serial"] = [serial_reference(model, cuda_params, p, new, max_len=max_len)
+                      for p in prompts]
+    launches["serial"], plain = read_counts()
+    for kernel in ("paged", "dense"):
+        eng = _engine_class()(model, cuda_params, SchedulerConfig(
+            chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
+            max_concurrent_prefills=2, kv_block_size=4), max_len=max_len, attn_kernel=kernel,
+            device="cuda")
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+        reset_counts()
+        eng.run(max_steps=400)
+        launches[kernel], p_calls = read_counts()
+        plain += p_calls
+        outs[kernel] = [eng.scheduler.requests[r].output for r in range(len(prompts))]
+    L = cfg.n_layers
+    rec = dict(phase="reduced_serial", arch=cfg.name, dtype="float32", launches=launches,
+               plain_cuda_calls=plain,
+               tokens_identical={k: v == outs["serial"] for k, v in outs.items()})
+    rec["ok"] = (all(rec["tokens_identical"].values()) and plain == 0
+                 and launches["serial"]["flash_attention"] == L * len(prompts)
+                 and launches["serial"]["decode_attention"] == L * len(prompts) * (new - 1)
+                 and launches["paged"]["mixed_paged_attention"] > 0
+                 and launches["dense"]["paged_attention"] > 0
+                 and all(len(o) == new for o in outs["serial"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"reduced_serial: {rec} {outs}")
+
+
+def serial(torch, smi, model, params, served):
+    """SERVE's 8 requests served one at a time at full width (B4 prefill of
+    each whole prompt, then B3 per token over a 1 GiB dense cache): the
+    serial execution the paper's packing is measured against. The first
+    request's attention calls are also computed by the plain version on the
+    same bf16 tensors and held to the bf16 row tolerance."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import decode_attention_ref, flash_attention_ref
+    from repro_torch.models import attention
+    from repro_torch.serving.serial import serial_tokens
+
+    c = SERVE
+    cfg = model.cfg
+    prompts = serve_prompts(cfg.vocab_size)
+    used, nonfinite = [], [0]
+    real_flash, real_decode = ops.flash_attention_bshd, ops.decode_attention_bhd
+
+    def checked_flash(q, k, v, **kw):
+        out = real_flash(q, k, v, **kw)
+        B, S, H, d = q.shape
+        plain = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+        used.append(tol_used(out.reshape(B * S, H, d, 1).float(), plain.reshape(B * S, H, d, 1),
+                             "bfloat16"))
+        return out
+
+    def checked_decode(q, k, v, lengths, **kw):
+        out = real_decode(q, k, v, lengths, **kw)
+        B, _, H, d = q.shape
+        KV = k.shape[2]
+        plain = decode_attention_ref(q.float().reshape(B, KV, H // KV, d), k.float(), v.float(),
+                                     lengths.to(torch.int32), **kw)
+        used.append(tol_used(out.reshape(B, KV, H // KV, d).float(), plain, "bfloat16"))
+        return out
+
+    real_head = model._head
+
+    def counted_head(params, h):
+        logits = real_head(params, h)
+        nonfinite[0] += int((~logits.isfinite()).sum())
+        return logits
+
+    model._head = counted_head  # every logit the run computes is checked
+    ops.flash_attention_bshd, ops.decode_attention_bhd = checked_flash, checked_decode
+    first = list(serial_tokens(model, params, prompts[0], 2, max_len=c["max_len"]))
+    ops.flash_attention_bshd, ops.decode_attention_bhd = real_flash, real_decode
+
+    torch.cuda.synchronize()
+    reset_counts()
+    outs, prefill_ms, decode_ms = [], [], []
+    t_run = time.perf_counter()
+    for prompt in prompts:
+        t = time.perf_counter()
+        toks = []
+        for tok in serial_tokens(model, params, prompt, c["max_new"], max_len=c["max_len"]):
+            now = time.perf_counter()
+            (decode_ms if toks else prefill_ms).append((now - t) * 1e3)
+            toks.append(tok)
+            t = now
+        outs.append(toks)
+    run_s = time.perf_counter() - t_run
+    counts, plain_cuda = read_counts()
+    del model._head
+    prefill_tok = sum(len(p) for p in prompts)
+    decode_tok = len(prompts) * (c["max_new"] - 1)
+    tok_per_s = (prefill_tok + decode_tok) / run_s
+    agree = float(np.mean([a == b for o, s_ in zip(outs, served["outputs"])
+                           for a, b in zip(o, s_)]))
+    L = cfg.n_layers
+    rec = dict(
+        phase="serial", arch=cfg.name, layers=L, dtype="bfloat16", requests=len(prompts),
+        prompt_lens=[len(p) for p in prompts], max_new_tokens=c["max_new"],
+        max_len=c["max_len"], run_s=run_s, prefill_tokens=prefill_tok, decode_tokens=decode_tok,
+        tok_per_s=tok_per_s, prefill_ms=prefill_ms,
+        prefill_tok_per_s=prefill_tok / (sum(prefill_ms) / 1e3),
+        decode_ms_per_token=float(np.mean(decode_ms)),
+        decode_ms_per_token_median=float(np.median(decode_ms)),
+        decode_tok_per_s=decode_tok / (sum(decode_ms) / 1e3),
+        serve_tok_per_s=served["tok_per_s"], serve_over_serial=served["tok_per_s"] / tok_per_s,
+        serve_decode_over_serial_decode=(served["decode_tok_per_s"]
+                                         / (decode_tok / (sum(decode_ms) / 1e3))
+                                         if served["decode_tok_per_s"] else None),
+        launches_by_kernel=counts, plain_cuda_calls=plain_cuda,
+        checked_calls=len(used), checked_tol_used_max=max(used),
+        nonfinite_logits=nonfinite[0], tokens_equal_to_serve=agree,
+        first_request_head=first, nvidia_smi=smi)
+    rec["ok"] = (counts["flash_attention"] == L * len(prompts)
+                 and counts["decode_attention"] == L * decode_tok
+                 and plain_cuda == 0 and nonfinite[0] == 0 and len(used) == 2 * L
+                 and max(used) <= 1 and outs[0][:2] == first
+                 and all(len(o) == c["max_new"] for o in outs))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serial: {rec}")
+    return rec
+
+
+def micro(torch, parity):
+    """kernels_micro's two comparisons at its full shapes (fp32; H 8, KV 2,
+    d 64; 32 rows of a 8192-token cache at lengths 64..2048; page 128):
+    (1) dense-cache decode (B3) against ragged paged decode (B2), from the
+    parity cases of those shapes; (2) the unified mixed call (B1: 32
+    decode rows plus 2 chunks of 512 after a 256-token prefix) against the
+    per-token expansion (B2: 32 + 1024 rows), with the prefill KV tokens
+    each reads from ``core.opcost.kv_tokens_touched``."""
+    import numpy as np
+
+    from repro_torch.core.opcost import kv_tokens_touched
+    from repro_torch.kernels.paged_attention import mixed_paged_attention, paged_attention, q_tiles
+    from repro_torch.kernels.ref import mixed_attention_ref, paged_attention_ref
+
+    Bd, Sd, page, KV, G, d = 32, 8192, 128, 2, 4, 64
+    lens = [int(x) for x in np.linspace(64, 2048, Bd)]
+    elem = 4
+    row_bytes = KV * d * 2 * elem
+    dense, ragged = parity["b3_micro_fp32"], parity["b2_micro_fp32"]
+    gather = dict(
+        dense_decode_ms=dense["kernel_ms"], ragged_paged_ms=ragged["kernel_ms"],
+        # what kernels_micro's dense gather reads (every row to S_max), what
+        # B3 reads (each row to its length) and what the page-granular
+        # ragged path is priced at (whole pages)
+        dense_gather_bytes=Bd * Sd * row_bytes, dense_kernel_bytes=sum(lens) * row_bytes,
+        ragged_bytes=kv_tokens_touched(lens, page) * row_bytes)
+    gather["bytes_ratio"] = gather["ragged_bytes"] / gather["dense_gather_bytes"]
+
+    # the unified mixed batch against its per-token expansion
+    chunk, C, prefix = 512, 2, 2 * page
+    seg_q = [1] * Bd + [chunk] * C
+    seg_kv = lens + [prefix + chunk] * C
+    pps = Sd // page
+    nb = -(-max(seg_kv) // page)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    pool_k = torch.randn((Bd * pps + 1, page, KV, d), generator=gen, device="cuda")
+    pool_v = torch.randn((Bd * pps + 1, page, KV, d), generator=gen, device="cuda")
+    tables = ((np.arange(len(seg_q)) % Bd)[:, None] * pps + np.arange(nb)[None, :]).astype(
+        np.int32)
+    cu = np.zeros(len(seg_q) + 1, np.int32)
+    cu[1:] = np.cumsum(seg_q)
+    N = int(cu[-1])
+    q = torch.randn((N, KV, G, d), generator=gen, device="cuda")
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
+    d_cu, d_kv, d_tab, d_tiles = t(cu), t(np.asarray(seg_kv, np.int32)), t(tables), \
+        t(q_tiles(cu, G))
+    row_len = lens + [prefix + j + 1 for _ in range(C) for j in range(chunk)]
+    row_tab = t(np.concatenate([tables[:Bd]] + [np.repeat(tables[Bd + s][None], chunk, 0)
+                                                  for s in range(C)]))
+    d_len = t(np.asarray(row_len, np.int32))
+    unified = lambda: mixed_paged_attention(q, pool_k, pool_v, d_cu, d_kv, d_tab,  # noqa: E731
+                                            tiles=d_tiles)
+    per_token = lambda: paged_attention(q, pool_k, pool_v, d_len, row_tab)  # noqa: E731
+    plain = paged_attention_ref(q, pool_k, pool_v, d_len, row_tab)
+    err = dict(unified=tol_used(unified(), mixed_attention_ref(q, pool_k, pool_v, d_cu, d_kv,
+                                                                d_tab), "float32"),
+               per_token=tol_used(per_token(), plain, "float32"))
+    uni_prefill = kv_tokens_touched(seg_kv[Bd:], page)
+    pt_prefill = kv_tokens_touched(row_len[Bd:], page)
+    mixed = dict(unified_ms=device_ms(torch, unified, reps=20)[0],
+                 per_token_ms=device_ms(torch, per_token, reps=20)[0],
+                 unified_prefill_kv_tokens=uni_prefill, per_token_prefill_kv_tokens=pt_prefill,
+                 prefill_bytes_ratio=uni_prefill / pt_prefill, rows=N, tol_used=err)
+    rec = dict(phase="micro", shape=dict(rows=Bd, cap=Sd, page=page, kv=KV, g=G, d=d,
+                                         dtype="float32"),
+               dense_vs_ragged=gather, unified_vs_per_token=mixed)
+    rec["ok"] = max(err.values()) <= 1 and uni_prefill < pt_prefill
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"micro: {rec}")
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -615,29 +1387,59 @@ def main() -> int:
               allow_tf32=torch.backends.cuda.matmul.allow_tf32))
 
     t0 = time.perf_counter()
-    built = _build.build("mixed_paged_attention")
+    built = _build.build_all(sorted({Path(src).stem for src, _ in KERNELS.values()}))
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              kernels={built.name: dict(path=str(built.path.relative_to(ROOT)),
-                                        nvcc_s=built.seconds,
-                                        ptxas=[ln.strip() for ln in built.log.splitlines()
-                                               if "registers" in ln or "spill" in ln])}))
+              kernels={b.name: dict(path=str(b.path.relative_to(ROOT)), nvcc_s=b.seconds,
+                                    ptxas=[ln.strip() for ln in b.log.splitlines()
+                                           if "registers" in ln or "spill" in ln])
+                       for b in built}))
 
     parity = kernel_parity(torch)
+    parity.update(single_query_and_flash_parity(torch))
     reduced_serve(torch)
     engine_bf16(torch)
-    served = serve(torch, smi)
+    reduced_serial(torch)
+    model, params, setup = full_model(torch)
+    served = serve(torch, smi, model, params, setup)
+    dense_engine_check(torch, model, params)
+    served_dense = serve(torch, smi, model, params, setup, attn_kernel="dense")
+    serial_rec = serial(torch, smi, model, params, served)
+    micro(torch, parity)
 
-    main_case = parity["mixed_bf16"]
-    emit({"kernels": [dict(
-        name="mixed_paged_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:268",
-        launches=served["kernel_launches"],
-        max_abs_err=main_case["max_abs_err"], tol_used=main_case["tol_used"],
-        ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
-        bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-        library_ms=main_case["library_ms"], shape_case="mixed_bf16",
-        max_abs_err_all_cases=max(r["max_abs_err"] for r in parity.values()))]})
+    # each kernel: its launches on the main path that runs it, timed at that
+    # path's shapes (the first one heads the line); plain-version calls on
+    # the card summed over those paths
+    paths = {"mixed_paged_attention": (served, ["mixed_bf16"]),
+             "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16"]),
+             "decode_attention": (serial_rec, ["b3_serial_bf16"]),
+             "flash_attention": (serial_rec, ["b4_prompt4096_bf16"])}
+    lines = []
+    for kname, (source, replaces) in KERNELS.items():
+        path, cases = paths[kname]
+        main_case = parity[cases[0]]
+        lines.append(dict(
+            name=kname, route="cuda", source=source, replaces=replaces,
+            launches=path["launches_by_kernel"][kname],
+            plain_cuda_calls=path["plain_cuda_calls"],
+            max_abs_err=main_case["max_abs_err"], tol_used=main_case["tol_used"],
+            ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
+            bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
+            library_ms=main_case["library_ms"], timing=main_case["timing"],
+            event_ms=main_case["kernel_event_ms"], shape_case=cases[0], main_path=path["phase"],
+            main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],
+                                  plain_ms=parity[n]["plain_ms"],
+                                  bound_ms=parity[n]["bound_ms"],
+                                  bound_by=parity[n]["bound_by"],
+                                  library_ms=parity[n]["library_ms"],
+                                  max_abs_err=parity[n]["max_abs_err"],
+                                  tol_used=parity[n]["tol_used"]) for n in cases],
+            max_abs_err_all_cases=max(r["max_abs_err"] for r in parity.values()
+                                      if r["kernel"] == kname),
+            tol_used_all_cases=max(r["tol_used"] for r in parity.values()
+                                   if r["kernel"] == kname)))
+    emit({"kernels": lines})
+    if not all(k["launches"] > 0 and k["plain_cuda_calls"] == 0 for k in lines):
+        raise AssertionError(f"a kernel of a main path did not launch: {lines}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

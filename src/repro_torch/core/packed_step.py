@@ -1,18 +1,27 @@
 """Packed forward step: prefill-chunk tokens + decode tokens in ONE pass.
 
-The PyTorch counterpart of the JAX package's ``core/packed_step.py``, paged
-branch only. The step takes a flat token set — one token per decoding
-request plus chunks of prefilling requests — and runs every linear and FFN
-op over the packed (N, d) token matrix, so the weights stream from device
-memory once per step. KV lives in a physical page pool: each row's new K/V
-is written through the engine's block tables, then ONE mixed-batch ragged
-attention call (``kernels.paged_attention.mixed_paged_attention``) serves
-decode rows and prefill chunks together, each segment reading only its own
-pages up to its own positions.
+The PyTorch counterpart of the JAX package's ``core/packed_step.py``. The
+step takes a flat token set — one token per decoding request plus chunks of
+prefilling requests — and runs every linear and FFN op over the packed
+(N, d) token matrix, so the weights stream from device memory once per step.
+Every row's new K/V is written first, then one attention call serves all
+rows. Two realizations, one view class each:
 
-Where JAX rebuilt the pool (``pool.at[...].set``), the port writes it in
-place (``index_put_``): ``packed_step`` mutates the cache it is given and
-returns that same list. A Python loop over layers replaces ``lax.scan``.
+  * ``PagedView``: KV in a physical page pool, written through the engine's
+    block tables; ONE mixed-batch ragged call
+    (``kernels.paged_attention.mixed_paged_attention``, B1) serves decode
+    rows and prefill chunks together, each segment reading only its own
+    pages up to its own positions.
+  * ``DenseView``: the dense fallback. KV in a ``(n_slots + 1, max_len,
+    KV, d)`` slot cache, written at (slot, position); ONE one-query-per-row
+    call (``kernels.paged_attention.paged_attention``, B2) with each slot's
+    row as one page of ``max_len`` tokens (table ``slots[:, None]``,
+    ``lengths = positions + 1``). Keys past a row's position may hold an
+    earlier request's tokens; the kernel never reads them.
+
+Where JAX rebuilt the cache (``.at[...].set``), the port writes it in place
+(``index_put_``): ``packed_step`` mutates the cache it is given and returns
+that same list. A Python loop over layers replaces ``lax.scan``.
 """
 from __future__ import annotations
 
@@ -22,8 +31,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.kernels.paged_attention import mixed_paged_attention
-from repro_torch.models.layers import dense, ffn, rms_norm, rope_angles, rotate, softcap
+from repro_torch.kernels.paged_attention import mixed_paged_attention, paged_attention
+from repro_torch.models.layers import dense, ffn, rms_norm, rope_angles, rotate
 from repro_torch.models.model import Model
 
 
@@ -75,9 +84,40 @@ class PagedView:
         ``write_index``), in place."""
         pool.index_put_(index, values.to(pool.dtype))
 
+    def attend(self, q, k_cache, v_cache, *, window, softcap):
+        """q (N, KV, G, d) over the pool: one mixed-batch call (B1)."""
+        return mixed_paged_attention(q, k_cache, v_cache, self.cu_q_lens, self.kv_lens,
+                                     self.seg_tables(), window=window, softcap=softcap,
+                                     tiles=self.tiles)
 
-def _packed_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, paged: PagedView,
-                write_index):
+
+@dataclasses.dataclass
+class DenseView:
+    """One packed step's dense-cache attention metadata, built once per
+    step and shared by every layer: the rows' slots and positions."""
+
+    slots: torch.Tensor  # (N,) int32
+    positions: torch.Tensor  # (N,) int32
+
+    def __post_init__(self):
+        self._lengths = (self.positions + 1).to(torch.int32)
+        self._tables = self.slots.to(torch.int32).view(-1, 1)
+
+    def write_index(self, slots: torch.Tensor,
+                    positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Token at position p of slot s lands in cache row s, offset p."""
+        return slots.long(), positions.long()
+
+    scatter = staticmethod(PagedView.scatter)
+
+    def attend(self, q, k_cache, v_cache, *, window, softcap):
+        """q (N, KV, G, d), one query per row, over its slot's cache row: one
+        call (B2), each row a page of ``max_len`` tokens."""
+        return paged_attention(q, k_cache, v_cache, self._lengths, self._tables, window=window,
+                               softcap=softcap)
+
+
+def _packed_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, write_index):
     N = x.shape[0]
     hd, KV = cfg.head_dim, cfg.n_kv_heads
     G = cfg.n_heads // KV
@@ -90,20 +130,16 @@ def _packed_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, paged: P
     q = rotate(q, angles)
     k = rotate(k, angles)
     window = cfg.local_window if spec.attn_kind == "local" else None
-    paged.scatter(cache["k"], write_index, k)
-    paged.scatter(cache["v"], write_index, v)
-    o = mixed_paged_attention(
-        q.reshape(N, KV, G, hd).to(cache["k"].dtype).contiguous(),
-        cache["k"], cache["v"], paged.cu_q_lens, paged.kv_lens, paged.seg_tables(),
-        window=window, softcap=cfg.attn_logit_softcap, tiles=paged.tiles,
-    ).reshape(N, cfg.n_heads * hd).to(x.dtype)
-    return dense(p["wo"], o)
+    view.scatter(cache["k"], write_index, k)
+    view.scatter(cache["v"], write_index, v)
+    o = view.attend(q.reshape(N, KV, G, hd).to(cache["k"].dtype).contiguous(), cache["k"],
+                    cache["v"], window=window, softcap=cfg.attn_logit_softcap)
+    return dense(p["wo"], o.reshape(N, cfg.n_heads * hd).to(x.dtype))
 
 
-def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, paged: PagedView,
-                  write_index):
+def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, write_index):
     hn = rms_norm(p["norm1"], x, cfg.norm_eps)
-    y = _packed_gqa(p["mixer"], cfg, spec, hn, angles, cache, paged, write_index)
+    y = _packed_gqa(p["mixer"], cfg, spec, hn, angles, cache, view, write_index)
     if cfg.post_norm:
         y = rms_norm(p["post_norm1"], y, cfg.norm_eps)
     x = x + y
@@ -117,26 +153,25 @@ def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, paged:
 
 
 @torch.inference_mode()
-def packed_step(model: Model, params, cache, tokens, slots, positions, paged: PagedView):
+def packed_step(model: Model, params, cache, tokens, slots, positions,
+                paged: Optional[PagedView] = None):
     """tokens/slots/positions: (N,) -> (logits (N, vocab) fp32, cache).
 
-    ``cache`` is the per-layer page pool list (``Model.init_page_pool``); it
-    is updated in place and returned. Padding rows point at the scratch slot,
-    whose table names only the scratch page; their outputs are ignored by the
-    caller."""
+    With ``paged`` the cache is the per-layer page pool list
+    (``Model.init_page_pool``); padding rows point at the scratch slot, whose
+    table names only the scratch page, and their outputs are ignored by the
+    caller. Without it the cache is the dense slot cache
+    (``Model.init_cache(n_slots + 1, max_len)``). Either is updated in place
+    and returned."""
     cfg = model.cfg
     if not supports_packed(cfg):
         raise NotImplementedError(f"{cfg.name}: not a packed (attention-only) arch")
-    x = params["embed"][tokens.long()].to(model.dtype)
-    if cfg.scale_embeddings:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=model.dtype)
+    view = paged if paged is not None else DenseView(slots, positions)
+    x = model._embed(params, tokens)
     # what every layer shares is computed once: the K/V write targets and
     # the RoPE angles of the step's positions
-    write_index = paged.write_index(slots, positions)
+    write_index = view.write_index(slots, positions)
     angles = rope_angles(positions, model.inv_freq)
     for p, spec, layer_cache in zip(params["layers"], cfg.layer_specs, cache):
-        x = _packed_layer(p, cfg, spec, x, angles, layer_cache, paged, write_index)
-    x = rms_norm(params["final_norm"], x, cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = softcap((x @ w.to(x.dtype)).float(), cfg.final_logit_softcap)
-    return logits, cache
+        x = _packed_layer(p, cfg, spec, x, angles, layer_cache, view, write_index)
+    return model._head(params, rms_norm(params["final_norm"], x, cfg.norm_eps)), cache

@@ -34,19 +34,17 @@
 // window of the tile's first row, are never loaded: dead table entries name a
 // scratch page holding garbage (even NaN), so they are skipped, not masked.
 // Rows of out that no tile covers (padding) are left as the caller made them.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
+
+using namespace attn;
 
 constexpr int NT = 256;     // threads per CTA
 constexpr int M_MAX = 64;   // query vectors per CTA (q-tile rows x G)
 constexpr int BK = 64;      // keys per block
 constexpr int PAD = 4;      // row padding of K and the scores: keeps 16-byte
                             // alignment and spreads a warp's rows over the banks
-constexpr float NEG_INF = -1.0e30f;
 
 // ---------------------------------------------------------------------------
 // fp32: the products on the CUDA cores
@@ -55,60 +53,6 @@ constexpr float NEG_INF = -1.0e30f;
 // four floats from 16-byte-aligned global memory
 __device__ __forceinline__ float4 load4(const float* src) {
   return __ldg(reinterpret_cast<const float4*>(src));
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// acc[i] += q[first + step * i] . k for the thread's rows i < n (all ROWS when
-// FULL: no per-row test, so the compiler can interleave the rows' loads and
-// FMAs). q rows are D floats apart, k is one key's D floats.
-template <int ROWS, int D, bool FULL>
-__device__ __forceinline__ void dot_rows(float (&acc)[ROWS], const float* qs, const float* kr,
-                                         int first, int step, int n) {
-  for (int x = 0; x < D; x += 4) {
-    const float4 kx = *reinterpret_cast<const float4*>(kr + x);
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      if (!FULL && i >= n) break;
-      const float4 qx = *reinterpret_cast<const float4*>(qs + (first + step * i) * D + x);
-      float s = acc[i];
-      s = fmaf(qx.x, kx.x, s);
-      s = fmaf(qx.y, kx.y, s);
-      s = fmaf(qx.z, kx.z, s);
-      acc[i] = fmaf(qx.w, kx.w, s);
-    }
-  }
-}
-
-// acc[i] += sum_c p[first + step * i][c] * v[c][dcol] over the BK keys of a
-// block, for the thread's rows i < n (all ROWS when FULL).
-template <int ROWS, int D, int SS, bool FULL>
-__device__ __forceinline__ void pv_rows(float (&acc)[ROWS], const float* ss, const float* vs,
-                                        int dcol, int first, int step, int n) {
-  for (int c = 0; c < BK; c += 4) {
-    const float v0 = vs[c * D + dcol], v1 = vs[(c + 1) * D + dcol];
-    const float v2 = vs[(c + 2) * D + dcol], v3 = vs[(c + 3) * D + dcol];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      if (!FULL && i >= n) break;
-      const float4 p = *reinterpret_cast<const float4*>(ss + (first + step * i) * SS + c);
-      float a = acc[i];
-      a = fmaf(p.x, v0, a);
-      a = fmaf(p.y, v1, a);
-      a = fmaf(p.z, v2, a);
-      acc[i] = fmaf(p.w, v3, a);
-    }
-  }
 }
 
 template <int D>
@@ -261,9 +205,9 @@ __global__ void __launch_bounds__(NT) mixed_paged_attention_f32_kernel(
       acc[i] *= a_s[prg + RG * i];
     }
     if (n_o == RPT)
-      pv_rows<RPT, D, SS, true>(acc, ss, vs, dcol, prg, RG, n_o);
+      pv_rows<RPT, D, SS, BK, true>(acc, ss, vs, dcol, prg, RG, n_o);
     else
-      pv_rows<RPT, D, SS, false>(acc, ss, vs, dcol, prg, RG, n_o);
+      pv_rows<RPT, D, SS, BK, false>(acc, ss, vs, dcol, prg, RG, n_o);
     __syncthreads();
   }
 
@@ -292,30 +236,6 @@ __global__ void __launch_bounds__(NT) mixed_paged_attention_f32_kernel(
 constexpr int MMA_NT = 256;     // 8 warps gather; the first 4 compute
 constexpr int MMA_WARPS_C = 4;  // compute warps: 4 x 16 rows = M_MAX
 constexpr int MMA_PAD = 8;      // bf16 row padding of the staged K and V
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The B fragment (16 keys x 8 dims) of P V from V staged as [key][d]: the
-// two 8x8 matrices of keys k0..k0+7 and k0+8..k0+15, transposed on load.
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& b0, uint32_t& b1,
-                                                  const __nv_bfloat16* row) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
@@ -512,13 +432,9 @@ cudaError_t launch_mma(const void* q, const void* k_pages, const void* v_pages, 
                        int qt, float scale, float softcap, int window, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<D>();
   auto kernel = mixed_paged_attention_mma_kernel<D>;
-  static bool opted_in = false;  // above 48 KB of shared memory needs an opt-in
-  if (!opted_in) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  static bool opted_in = false;
+  const cudaError_t err = opt_in_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(n_tiles, n_kv), MMA_NT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k_pages),
       static_cast<const __nv_bfloat16*>(v_pages), static_cast<__nv_bfloat16*>(out),
@@ -535,13 +451,9 @@ cudaError_t launch_f32(const void* q, const void* k_pages, const void* v_pages, 
                        int qt, float scale, float softcap, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   auto kernel = mixed_paged_attention_f32_kernel<D>;
-  static bool opted_in = false;  // above 48 KB of shared memory needs an opt-in
-  if (!opted_in) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return err;
-    opted_in = true;
-  }
+  static bool opted_in = false;
+  const cudaError_t err = opt_in_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
   kernel<<<dim3(n_tiles, n_kv), NT, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k_pages),
       static_cast<const float*>(v_pages), static_cast<float*>(out),

@@ -1,9 +1,9 @@
-"""Mixed-batch ragged paged attention: the wrapper of the Hopper kernel.
+"""Paged attention: the wrappers of two Hopper kernels.
 
-``mixed_paged_attention`` is the port of the JAX package's Pallas kernel of
-the same name (``kernels/paged_attention.py``): one call per packed serving
-step, every segment (a decode row or a prefill chunk) a causal block of
-queries over its own paged KV prefix. On a CPU tensor it runs the plain
+``mixed_paged_attention`` (B1) is the port of the JAX package's Pallas
+kernel of the same name (``kernels/paged_attention.py``): one call per packed
+serving step, every segment (a decode row or a prefill chunk) a causal block
+of queries over its own paged KV prefix. On a CPU tensor it runs the plain
 version (``kernels.ref.mixed_attention_ref``); on a CUDA tensor it launches
 ``csrc/mixed_paged_attention.cu`` or raises — it never falls back.
 
@@ -13,6 +13,15 @@ The CUDA kernel runs one CTA per (q-tile, KV head). A q-tile is up to
 engine, so the 32 layers of a step reuse one device copy and a launch never
 waits on the device. ``mixed_paged_attention.launches`` counts kernel
 launches.
+
+``paged_attention`` (B2) is the port of the Pallas ``paged_attention``: one
+query per row, at position ``lengths[n] - 1``, over the pages its block
+table names. It launches the single-query kernel of
+``csrc/decode_attention.cu`` (shared with B3, ``kernels.decode_attention``)
+with the table addressing policy, or on the CPU runs
+``kernels.ref.paged_attention_ref``. The engine's dense fallback calls it
+with each slot's cache row as one page of ``max_len`` tokens.
+``paged_attention.launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -24,11 +33,17 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import mixed_attention_ref
+from repro_torch.kernels.decode_attention import (
+    DTYPE_CODES,
+    HEAD_DIMS,
+    check_query,
+    launchers,
+    split_count,
+    workspace,
+)
+from repro_torch.kernels.ref import mixed_attention_ref, paged_attention_ref
 
 M_MAX = 64  # query vectors per CTA (csrc/mixed_paged_attention.cu)
-HEAD_DIMS = (16, 32, 64, 128)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def q_tile_rows(group: int) -> int:
@@ -103,7 +118,7 @@ def mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
         return mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
                                    window=window, softcap=softcap)
     N, KV, G, d = q.shape
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {d}")
@@ -121,7 +136,7 @@ def mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
              tiles.data_ptr(), tiles.shape[0], KV, G, d, k_pages.shape[1],
              block_tables.shape[1], qt, 1.0 / d**0.5,
              0.0 if softcap is None else float(softcap),
-             0 if window is None else int(window), _DTYPE_CODES[q.dtype],
+             0 if window is None else int(window), DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mixed_paged_attention launch failed: {err_string(err).decode()}")
@@ -130,3 +145,49 @@ def mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
 
 
 mixed_paged_attention.launches = 0
+
+
+def paged_attention(q, k_pages, v_pages, lengths, block_tables, *,
+                    window: Optional[int] = None,
+                    softcap: Optional[float] = None) -> torch.Tensor:
+    """q: (N, KV, G, d) one query per row; k/v_pages: (P, page, KV, d)
+    contiguous pool; lengths: (N,) int32 keys each row attends;
+    block_tables: (N, nb) int32 page ids in logical order. Returns
+    (N, KV, G, d)."""
+    check_query(q, lengths, "paged_attention")
+    N, KV, G, d = q.shape
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape or k_pages.shape[2:] != (KV, d):
+        raise ValueError(f"want k/v pages (P, page, KV, d) matching q {tuple(q.shape)}; got "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != N:
+        raise ValueError(f"want block_tables as ({N}, nb) int32, got "
+                         f"{tuple(block_tables.shape)} {block_tables.dtype}")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages), ("block_tables", block_tables)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous and on {q.device}")
+    if q.is_cuda and (k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16):
+        raise ValueError("k/v pages must start 16-byte aligned (the kernel copies 16 bytes "
+                         "at a time)")
+    if not q.is_cuda:
+        return paged_attention_ref(q, k_pages, v_pages, lengths, block_tables, window=window,
+                                   softcap=softcap)
+    page, nb = k_pages.shape[1], block_tables.shape[1]
+    n_split = split_count(N * KV, nb * page)
+    out = torch.empty_like(q)
+    o_part, ml_part, _keep = workspace(q, n_split)
+    _, paged, err_string = launchers()
+    err = paged(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(), o_part,
+                ml_part, lengths.data_ptr(), block_tables.data_ptr(), N, nb, page, KV, G, d,
+                n_split, 1.0 / d**0.5, 0.0 if softcap is None else float(softcap),
+                0 if window is None else int(window), DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention launch failed: {err_string(err).decode()}")
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

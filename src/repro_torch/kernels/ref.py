@@ -7,11 +7,17 @@ row's length (or below its window) are zeroed before the products, so
 NaN-filled dead and scratch pages give the same answer as clean ones (the
 JAX oracle relies on finite garbage: ``0 * NaN`` is NaN).
 
-``mixed_attention_ref.cuda_calls`` counts calls on CUDA tensors, so a run
-can show that its main path never fell back to the plain version.
+Layouts are the port's kernels', which read the model's tensors in place:
+``flash_attention_ref`` takes ``(B, S, H, d)`` queries and ``(B, S, KV, d)``
+keys (the JAX oracle ``(B, H, S, d)`` and ``(B, KV, S, d)``), and
+``decode_attention_ref`` a ``(B, S, KV, d)`` cache (JAX ``(B, KV, S, d)``).
+
+Each function's ``cuda_calls`` counts its calls on CUDA tensors, so a run
+can show that its main path never fell back to a plain version.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -30,6 +36,18 @@ def _zero_dead(kc, vc, live):
     return torch.where(live, kc, 0.0), torch.where(live, vc, 0.0)
 
 
+def _counts_cuda_calls(fn):
+    """Give ``fn`` a ``cuda_calls`` counter of its calls on CUDA tensors."""
+    @functools.wraps(fn)
+    def counted(q, *args, **kwargs):
+        if q.is_cuda:
+            counted.cuda_calls += 1
+        return fn(q, *args, **kwargs)
+
+    counted.cuda_calls = 0
+    return counted
+
+
 def _attend(q, kc, vc, ok, softcap):
     """q (..., KV, G, d) fp32 queries over keys kc/vc (..., S, KV, d) fp32
     whose dead entries are already zeroed; ``ok`` (..., S) marks the keys
@@ -42,6 +60,52 @@ def _attend(q, kc, vc, ok, softcap):
     return torch.einsum("...kgs,...skd->...kgd", p, vc)
 
 
+def _one_query_rows(q, kc, vc, lengths, window, softcap):
+    """q (N,KV,G,d): one query per row at position ``lengths[n] - 1`` over
+    that row's keys kc/vc (N,S,KV,d); keys at or past the length, or left of
+    the window, are zeroed before the products."""
+    S = kc.shape[1]
+    lengths = lengths.long()[:, None]
+    k_pos = torch.arange(S, device=q.device)[None, :]
+    ok = k_pos < lengths
+    if window is not None:
+        ok &= k_pos > (lengths - 1) - window
+    kc, vc = _zero_dead(kc.float(), vc.float(), ok)
+    return _attend(q.float(), kc, vc, ok, softcap).to(q.dtype)
+
+
+@_counts_cuda_calls
+def flash_attention_ref(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+                        softcap: Optional[float] = None):
+    """q: (B,Sq,H,d); k/v: (B,Sk,KV,d) -> (B,Sq,H,d). Query i sits at
+    position i; with ``causal`` it attends keys j <= i, and with ``window``
+    only j > i - window. Keys no query may read (j >= Sq under ``causal``)
+    are zeroed before the products."""
+    B, Sq, H, d = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    ok = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window is not None:
+        ok &= k_pos > q_pos - window
+    kc, vc = _zero_dead(k.float(), v.float(), ok.any(0))
+    # query positions ride as a leading axis of _attend's (..., KV, G, d)
+    qg = q.float().reshape(B, Sq, KV, H // KV, d)
+    o = _attend(qg, kc[:, None], vc[:, None], ok[None], softcap)  # (B,Sq,KV,G,d)
+    return o.reshape(B, Sq, H, d).to(q.dtype)
+
+
+@_counts_cuda_calls
+def decode_attention_ref(q, k, v, lengths, *, window: Optional[int] = None,
+                         softcap: Optional[float] = None):
+    """q: (B,KV,G,d); k/v: (B,S,KV,d) dense cache; lengths (B,) ->
+    (B,KV,G,d). Row b's one query sits at position ``lengths[b] - 1``."""
+    return _one_query_rows(q, k, v, lengths, window, softcap)
+
+
+@_counts_cuda_calls
 def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables, *,
                         window: Optional[int] = None, softcap: Optional[float] = None):
     """q: (N,KV,G,d); k/v_pages: (P,page,KV,d); lengths (N,);
@@ -50,20 +114,13 @@ def paged_attention_ref(q, k_pages, v_pages, lengths, block_tables, *,
     Row n holds one query at position ``lengths[n] - 1`` and reads its pages
     in block-table order (logical key position ``ib*page + offset``)."""
     N, KV, G, d = q.shape
-    page = k_pages.shape[1]
-    S = block_tables.shape[1] * page
+    S = block_tables.shape[1] * k_pages.shape[1]
     tabs = block_tables.long()
-    kc = k_pages[tabs].reshape(N, S, KV, d).float()
-    vc = v_pages[tabs].reshape(N, S, KV, d).float()
-    lengths = lengths.long()[:, None]
-    k_pos = torch.arange(S, device=q.device)[None, :]
-    ok = k_pos < lengths
-    if window is not None:
-        ok &= k_pos > (lengths - 1) - window
-    kc, vc = _zero_dead(kc, vc, ok)
-    return _attend(q.float(), kc, vc, ok, softcap).to(q.dtype)
+    return _one_query_rows(q, k_pages[tabs].reshape(N, S, KV, d),
+                           v_pages[tabs].reshape(N, S, KV, d), lengths, window, softcap)
 
 
+@_counts_cuda_calls
 def mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *,
                         window: Optional[int] = None, softcap: Optional[float] = None):
     """Mixed-batch (prefill chunks + decode rows) attention, one segment at a
@@ -77,8 +134,6 @@ def mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *
     are skipped; rows at or after ``cu_q_lens[-1]`` are padding and come
     back zero.
     """
-    if q.is_cuda:
-        mixed_attention_ref.cuda_calls += 1
     N, KV, G, d = q.shape
     page = k_pages.shape[1]
     out = torch.zeros((N, KV, G, d), dtype=torch.float32, device=q.device)
@@ -104,5 +159,3 @@ def mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *
         out[r0:r1] = _attend(q[r0:r1].float(), kc[None], vc[None], ok, softcap)
     return out.to(q.dtype)
 
-
-mixed_attention_ref.cuda_calls = 0

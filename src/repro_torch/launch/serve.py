@@ -8,9 +8,10 @@ pool is sized from the device memory left free once the weights are resident
 (``torch.cuda.mem_get_info``, less ``ACTIVATION_RESERVE`` for activations),
 divided by one page's full-stack KV bytes in the pool dtype, and capped at the
 dense-equivalent layout (``max_batch * max_len`` tokens). On the CPU the cap
-is the size. ``--num-kv-blocks`` overrides both. The flags mirror the JAX
-launcher's; swap preemption, the prefix cache and the dense attention path
-are not ported yet and raise.
+is the size. ``--num-kv-blocks`` overrides both. ``--attn-kernel dense``
+serves from a dense ``(max_batch + 1, max_len)`` slot cache instead and
+sizes no pool. The flags mirror the JAX launcher's; swap preemption and the
+prefix cache are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -88,7 +89,7 @@ def main():
                          "stalls on OutOfBlocks instead of over-allocating")
     ap.add_argument("--attn-kernel", choices=["auto", "paged", "dense"], default="auto",
                     help="packed attention path: ragged block-table (paged) vs dense "
-                         "cache gather (not ported)")
+                         "slot cache")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="radix prefix cache (not ported)")
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -130,7 +131,9 @@ def main():
     params = model.init(torch.Generator(device=device).manual_seed(0))
 
     pool, pool_basis = args.num_kv_blocks, "flag"
-    if pool is None:
+    if pool is None and args.attn_kernel == "dense":
+        pool_basis = "dense slot cache"
+    elif pool is None:
         pool, pool_basis = sized_kv_pool(cfg, device, dtype, args.max_batch, args.max_len,
                                          args.kv_block)
     fault_plan = None

@@ -1,10 +1,17 @@
-"""Decoder-only GQA model: parameters, seeded init, and the KV page pool.
+"""Decoder-only GQA model: parameters, seeded init, the serial execution
+path and the KV page pool.
 
 The PyTorch counterpart of the JAX package's ``Model`` for the archs the
 port serves so far (attention mixers, dense FFNs, no MLA/MoE/enc-dec). The
 parameter tree follows ``Model.init`` / ``stack.layer_init`` /
 ``attention.attn_init`` key for key, except that layers are a Python list in
 layer order where JAX stacks them over scan periods.
+
+The serial path is JAX's: ``forward`` (one-shot causal), ``init_cache``,
+``prefill`` and ``decode_step`` over a dense ``(B, max_len, KV, d)`` cache
+per layer, which they update in place and return. ``index`` is an int (one
+offset for every row) or a ``(B,)`` tensor (one per row). ``loss`` waits for
+training.
 
 Parameters live on the model's device in the model's dtype (JAX keeps fp32
 masters and casts at use; serving has no optimizer, so the port stores what
@@ -18,11 +25,16 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import stack
+from repro_torch.models.attention import Index, cache_call
 from repro_torch.models.layers import (
     dense_init,
     ffn_init,
+    rms_norm,
     rms_norm_init,
+    rope_angles,
     rope_freqs,
+    softcap,
     truncated_normal,
 )
 
@@ -42,6 +54,21 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.learned_pos or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: learned positions / frontends are not ported yet")
+
+
+def _positions_from_index(index: Index, B: int, T: int, device) -> torch.Tensor:
+    """(B, T) int32 positions of T tokens written at ``index``."""
+    steps = torch.arange(T, dtype=torch.int32, device=device)
+    if isinstance(index, int):
+        return (index + steps)[None, :].expand(B, T)
+    return index.to(torch.int32)[:, None] + steps[None, :]
+
+
+def _as_index(index: Index) -> Index:
+    """A 0-d tensor index becomes an int (one offset for every row)."""
+    if isinstance(index, torch.Tensor) and index.dim() == 0:
+        return int(index)
+    return index
 
 
 def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
@@ -95,6 +122,66 @@ class Model:
             params["lm_head"] = truncated_normal((cfg.d_model, cfg.vocab_size), 0.02, **kw)
         return params
 
+    # ------------------------------------------------------------- embeddings
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        x = params["embed"][tokens.long()].to(self.dtype)
+        if self.cfg.scale_embeddings:
+            x = x * torch.tensor(self.cfg.d_model**0.5, dtype=self.dtype)
+        return x
+
+    def _head(self, params, h: torch.Tensor) -> torch.Tensor:
+        """fp32 logits of the final-normed hidden states ``h``."""
+        w = params["embed"].T if self.cfg.tie_embeddings else params["lm_head"]
+        return softcap((h @ w.to(h.dtype)).float(), self.cfg.final_logit_softcap)
+
+    # ---------------------------------------------------------------- serial
+    @torch.inference_mode()
+    def forward(self, params, batch) -> torch.Tensor:
+        """Full-sequence causal logits (B, S, vocab), fp32, of
+        ``batch["tokens"]`` (B, S). (JAX also returns the MoE auxiliary loss,
+        which is 0 without MoE.)"""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = _positions_from_index(0, B, S, self.device)
+        h, _ = stack.stack_apply(params["layers"], self.cfg, self._embed(params, tokens),
+                                 rope_angles(positions, self.inv_freq))
+        return self._head(params, rms_norm(params["final_norm"], h, self.cfg.norm_eps))
+
+    def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None):
+        """Zeroed dense KV cache, one ``{"k", "v"}`` of (batch, max_len, KV,
+        d) per layer, in ``dtype`` (default: the model's)."""
+        return stack.stack_cache_init(self.cfg, batch, max_len,
+                                      dtype=dtype if dtype is not None else self.dtype,
+                                      device=self.device)
+
+    def _run(self, params, tokens, cache, index: Index):
+        """The last position's logits (B, vocab) of ``tokens`` (B, T)
+        written into ``cache`` at ``index``."""
+        B, T = tokens.shape
+        index = _as_index(index)
+        cfg = self.cfg
+        positions = _positions_from_index(index, B, T, self.device)
+        # what every layer shares is built once: RoPE angles and the
+        # attention's metadata
+        call = cache_call(index, B, T, cfg.n_heads // cfg.n_kv_heads, self.device)
+        h, cache = stack.stack_apply(params["layers"], cfg, self._embed(params, tokens),
+                                     rope_angles(positions, self.inv_freq), caches=cache,
+                                     call=call)
+        h = rms_norm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+        return self._head(params, h)[:, 0], cache
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, cache, index: Index):
+        """Run a (chunked) prefill of ``batch["tokens"]`` (B, T) at
+        ``index``; returns (last-position logits (B, vocab), cache)."""
+        return self._run(params, batch["tokens"], cache, index)
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, cache, index: Index):
+        """tokens: (B, 1) -> (logits (B, vocab), cache)."""
+        return self._run(params, tokens, cache, index)
+
+    # ------------------------------------------------------------- page pool
     def init_page_pool(self, num_pages: int, page_size: int,
                        dtype: Optional[torch.dtype] = None):
         """Physical KV page pool: per layer, K and V pools of shape

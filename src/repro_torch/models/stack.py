@@ -1,0 +1,60 @@
+"""The decoder stack of the serial execution path.
+
+The PyTorch counterpart of the JAX package's ``models/stack.py`` for
+attention layers with dense FFNs. JAX stacks each period position's
+parameters and caches over periods and walks them with ``lax.scan``; the port
+keeps one entry per layer in layer order (``Model.init``'s ``"layers"``, and
+the per-layer cache list below) and walks them with a Python loop.
+"""
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.models.attention import CacheCall, attn_apply, kv_cache_init
+from repro_torch.models.layers import ffn, rms_norm
+
+
+def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, *,
+                     dtype: torch.dtype, device) -> dict:
+    if spec.mixer != "attn":
+        raise NotImplementedError(f"{spec.mixer} state caches are not ported yet (ROADMAP.md A9)")
+    return kv_cache_init(cfg, batch, max_len, dtype=dtype, device=device)
+
+
+def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, h, angles, *, cache=None,
+                call: Optional[CacheCall] = None):
+    """Returns (h, cache)."""
+    hn = rms_norm(p["norm1"], h, cfg.norm_eps)
+    y, cache = attn_apply(p["mixer"], cfg, spec, hn, angles, cache=cache, call=call)
+    if cfg.post_norm:
+        y = rms_norm(p["post_norm1"], y, cfg.norm_eps)
+    h = h + y
+    if spec.ffn != "none":
+        hn = rms_norm(p["norm2"], h, cfg.norm_eps)
+        y = ffn(p["ffn"], hn, cfg.act, cfg.glu)
+        if cfg.post_norm:
+            y = rms_norm(p["post_norm2"], y, cfg.norm_eps)
+        h = h + y
+    # JAX shards the residual here (shard_act); without a mesh that is a
+    # no-op, and the port runs on one card
+    return h, cache
+
+
+def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, dtype: torch.dtype,
+                     device) -> List[dict]:
+    """One zeroed ``{"k", "v"}`` cache of (batch, max_len, KV, d) per layer."""
+    return [layer_cache_init(cfg, spec, batch, max_len, dtype=dtype, device=device)
+            for spec in cfg.layer_specs]
+
+
+def stack_apply(layers, cfg: ModelConfig, h, angles, *, caches=None,
+                call: Optional[CacheCall] = None):
+    """Returns (h, caches): the given per-layer caches, written in place, or
+    None. ``angles`` and ``call`` are built once for all layers."""
+    for i, (p, spec) in enumerate(zip(layers, cfg.layer_specs)):
+        h, _ = layer_apply(p, cfg, spec, h, angles,
+                           cache=None if caches is None else caches[i], call=call)
+    return h, caches

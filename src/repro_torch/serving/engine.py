@@ -1,12 +1,19 @@
 """Continuous-batching serving engine driven by the packing-prefetch scheduler.
 
 The PyTorch counterpart of the JAX package's ``serving/engine.py`` for its
-main path: packed execution (decode tokens and prefill chunks share every
-linear and FFN matmul in one ``packed_step``) over a physically paged KV
-pool, with recompute preemption. The pool is ``num_kv_blocks + 1`` pages per
-layer (the extra page is the scratch page dead table entries and padding rows
-point at); ``block_mirror`` carries the allocator's real page ids, re-synced
-every step, so pages are relocatable and the pool may be over-subscribed.
+packed path: decode tokens and prefill chunks share every linear and FFN
+matmul in one ``packed_step``, with recompute preemption. Two KV layouts, as
+in JAX (``attn_kernel``):
+
+  * ``"paged"``: a physically paged pool of ``num_kv_blocks + 1`` pages per
+    layer (the extra page is the scratch page dead table entries and padding
+    rows point at); ``block_mirror`` carries the allocator's real page ids,
+    re-synced every step, so pages are relocatable and the pool may be
+    over-subscribed. Attention is one mixed-batch call (B1) per layer.
+  * ``"dense"``: the fallback, a ``(n_slots + 1, max_len)`` slot cache per
+    layer (``Model.init_cache``); attention is one one-query-per-row call
+    (B2) per layer. ``"auto"`` picks it when ``max_len`` is not a multiple of
+    the page size.
 
 Each step the engine builds ALL of the step's metadata on the host — tokens,
 slots, positions, block tables, the segment layout, the kernel's q-tile list
@@ -19,8 +26,7 @@ engine's pow2 padding; zero-width segments and unused columns cost nothing.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 item: swap preemption and the prefix cache (with their staged async
-prefetch), the dense attention fallback, and the two-call path of SSM /
-hybrid / enc-dec archs.
+prefetch), and the two-call path of SSM / hybrid / enc-dec archs.
 """
 from __future__ import annotations
 
@@ -80,11 +86,7 @@ class Engine:
         self.page_size = sched_cfg.kv_block_size
         if attn_kernel == "auto":
             attn_kernel = "paged" if max_len % self.page_size == 0 else "dense"
-        if attn_kernel == "dense":
-            raise NotImplementedError(
-                "the dense attention fallback is not ported yet (ROADMAP.md A8); the paged "
-                f"path needs max_len ({max_len}) divisible by kv_block_size ({self.page_size})")
-        if max_len % self.page_size:
+        if attn_kernel == "paged" and max_len % self.page_size:
             raise ValueError(
                 "attn_kernel='paged' needs max_len divisible by kv_block_size "
                 f"(max_len={max_len}, block={self.page_size})")
@@ -98,26 +100,32 @@ class Engine:
         self.steps_run = 0
         self.prefetch_log: List[float] = []
 
-        # physically paged KV: num_kv_blocks relocatable pages (default: the
-        # dense layout's capacity) + 1 scratch page. Backing the allocator
-        # with the same bound makes OutOfBlocks a real admission signal.
-        pps = self.pages_per_slot = max_len // self.page_size
-        pool_pages = sched_cfg.num_kv_blocks
-        if pool_pages is None:
-            pool_pages = self.n_slots * pps
-            sched_cfg = dataclasses.replace(sched_cfg, num_kv_blocks=pool_pages)
-        if pool_pages < pps:
-            raise ValueError(
-                f"num_kv_blocks={pool_pages} cannot hold one max_len "
-                f"context ({pps} pages of {self.page_size} tokens)")
-        self.num_pool_pages = pool_pages
-        self._scratch_page = pool_pages  # the extra page past the pool
-        self.cache = model.init_page_pool(pool_pages, self.page_size, cache_dtype)
-        # host mirror of the allocator's block tables: one row per slot
-        # holding real physical page ids, plus the scratch slot's row that
-        # padding segments own; dead entries -> scratch
-        self.block_mirror = np.full((self.n_slots + 1, pps), self._scratch_page, np.int32)
         self._group = self.cfg.n_heads // self.cfg.n_kv_heads
+        if attn_kernel == "paged":
+            # physically paged KV: num_kv_blocks relocatable pages (default:
+            # the dense layout's capacity) + 1 scratch page. Backing the
+            # allocator with the same bound makes OutOfBlocks a real
+            # admission signal.
+            pps = self.pages_per_slot = max_len // self.page_size
+            pool_pages = sched_cfg.num_kv_blocks
+            if pool_pages is None:
+                pool_pages = self.n_slots * pps
+                sched_cfg = dataclasses.replace(sched_cfg, num_kv_blocks=pool_pages)
+            if pool_pages < pps:
+                raise ValueError(
+                    f"num_kv_blocks={pool_pages} cannot hold one max_len "
+                    f"context ({pps} pages of {self.page_size} tokens)")
+            self.num_pool_pages = pool_pages
+            self._scratch_page = pool_pages  # the extra page past the pool
+            self.cache = model.init_page_pool(pool_pages, self.page_size, cache_dtype)
+            # host mirror of the allocator's block tables: one row per slot
+            # holding real physical page ids, plus the scratch slot's row
+            # that padding segments own; dead entries -> scratch
+            self.block_mirror = np.full((self.n_slots + 1, pps), self._scratch_page, np.int32)
+        else:
+            # dense slot storage, + 1 scratch row as in JAX (the port packs
+            # only real rows, so nothing writes it)
+            self.cache = model.init_cache(self.n_slots + 1, max_len, cache_dtype)
 
         self.sched_cfg = sched_cfg
         self.trace = tracer if tracer is not None else NOOP
@@ -146,11 +154,12 @@ class Engine:
         reg.counter("engine_steps", "steps", "engine steps executed").inc(self.steps_run)
         reg.gauge("engine_swap_store_entries", "requests",
                   "host-tier KV copies currently held").set(0.0)
-        reg.gauge("kv_pool_pages", "pages",
-                  "physical pages in the paged KV pool").set(float(self.num_pool_pages))
-        reg.gauge("kv_pool_peak_used", "pages",
-                  "peak pages simultaneously allocated").set(
-                      float(self.scheduler.mem.allocator.peak_used_blocks))
+        if self.attn_kernel == "paged":
+            reg.gauge("kv_pool_pages", "pages",
+                      "physical pages in the paged KV pool").set(float(self.num_pool_pages))
+            reg.gauge("kv_pool_peak_used", "pages",
+                      "peak pages simultaneously allocated").set(
+                          float(self.scheduler.mem.allocator.peak_used_blocks))
         if self.scheduler.injector.enabled:
             self.scheduler.injector.register_metrics(reg)
         self.scheduler.ledger.register_metrics(reg)
@@ -269,6 +278,29 @@ class Engine:
                 last_rows[seg.rid] = row + seg.length - 1
             row += seg.length
 
+        rows = list(range(nd)) + list(last_rows.values())
+        rids = list(plan.decode_rids) + list(last_rows.keys())
+        if self.attn_kernel == "paged":
+            logits = self._packed_paged(plan, tokens, slots, positions, row, rows)
+        else:
+            # dense: ONE host->device copy of the rows' tokens, slots and
+            # positions and the rows to sample; DenseView derives the rest
+            parts = [tokens, slots, positions, np.asarray(rows, np.int32)]
+            meta = torch.from_numpy(np.concatenate(parts)).to(self.device)
+            d_tokens, d_slots, d_pos, d_rows = torch.split(meta, [p.size for p in parts])
+            logits, self.cache = packed_step(self.model, self.params, self.cache, d_tokens,
+                                             d_slots, d_pos)
+            logits = logits[d_rows.long()]
+        # one device->host transfer of just the sampled token ids
+        if rows:
+            for rid, tok in zip(rids, self._sample_rows(logits)):
+                self._append(sch.requests[rid], int(tok))
+
+    def _packed_paged(self, plan: StepPlan, tokens, slots, positions, n_rows: int,
+                      rows) -> torch.Tensor:
+        """The paged step's metadata and compute; returns the logits of
+        ``rows``."""
+        nd = len(plan.decode_slots)
         max_ctx = self._sync_block_mirror(plan)
         nb = self._nb_bucket(max_ctx)
         # segment layout for the mixed-batch attention call, straight from
@@ -284,14 +316,12 @@ class Engine:
         seg_slots[:nd] = plan.decode_slots
         for i, seg in enumerate(plan.prefill_segments):
             seg_slots[nd + i] = seg.slot
-        if int(cu_q[s_real]) != row:
+        if int(cu_q[s_real]) != n_rows:
             raise RuntimeError(f"plan row layout mismatch: cu_q_lens end {cu_q[s_real]} "
-                               f"!= packed rows {row}")
+                               f"!= packed rows {n_rows}")
         if nd and not np.array_equal(kv_lens[:nd], positions[:nd] + 1):
             raise RuntimeError("decode kv_lens drifted from engine positions")
         tiles = q_tiles(cu_q, self._group)
-        rows = list(range(nd)) + list(last_rows.values())
-        rids = list(plan.decode_rids) + list(last_rows.keys())
 
         # ONE host->device copy of the step's metadata; every layer reuses it
         parts = [tokens, slots, positions, self.block_mirror[:, :nb].ravel(), cu_q,
@@ -303,7 +333,4 @@ class Engine:
                           kv_lens=d_kv, seg_slots=d_seg, tiles=d_tiles.view(-1, 2))
         logits, self.cache = packed_step(self.model, self.params, self.cache, d_tokens,
                                          d_slots, d_pos, paged)
-        # one device->host transfer of just the sampled token ids
-        if rows:
-            for rid, tok in zip(rids, self._sample_rows(logits[d_rows.long()])):
-                self._append(sch.requests[rid], int(tok))
+        return logits[d_rows.long()]

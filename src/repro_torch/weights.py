@@ -1,4 +1,4 @@
-"""Parameter and page-pool bridge from the JAX package's trees.
+"""Parameter and KV-cache bridge from the JAX package's trees.
 
 The JAX side hands over plain numpy (``jax.device_get`` of its pytrees), so
 this module never sees JAX. Period-stacked leaves — ``stack_init`` stacks
@@ -52,9 +52,12 @@ def from_jax_params(tree, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"
     return params
 
 
-def pool_from_jax(cache, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"):
-    """The JAX engine's paged cache (as numpy: ``{"prefix": [...],
-    "periods": {str(i): {"k","v"} stacked over periods}}``, leaves
-    ``(pages, page, KV, d)``) -> the port's per-layer page pool list."""
+def caches_from_jax(cache, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"):
+    """A JAX per-layer KV tree (as numpy: ``{"prefix": [...], "periods":
+    {str(i): {"k","v"} stacked over periods}}``) -> the port's per-layer
+    list of ``{"k","v"}``. It fits both layouts the JAX package builds with
+    ``stack_cache_init``: the paged engine's pool (leaves ``(pages, page,
+    KV, d)``) and the dense cache of ``Model.init_cache`` (leaves ``(batch,
+    max_len, KV, d)``)."""
     conv = _tensor(dtype, device)
     return [_map(layer, conv) for layer in _unstack_layers(cache, cfg)]

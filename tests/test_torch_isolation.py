@@ -64,6 +64,22 @@ def _is_jax_or_reference(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
+# modules the walk must reach (it is a glob, so a module that moved or was
+# renamed would drop out of the checks silently)
+EXPECTED = [
+    "repro_torch.kernels.ops", "repro_torch.kernels.decode_attention",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.paged_attention",
+    "repro_torch.kernels.ref", "repro_torch.models.attention", "repro_torch.models.stack",
+    "repro_torch.models.model", "repro_torch.serving.serial", "repro_torch.serving.engine",
+    "repro_torch.core.packed_step", "repro_torch.weights",
+]
+
+
+@pytest.mark.parametrize("module", EXPECTED)
+def test_walk_covers_module(module):
+    assert module in _port_modules()
+
+
 def test_importing_every_module_loads_neither_jax_nor_reference():
     code = (
         "import importlib, sys\n"

@@ -1,10 +1,13 @@
-"""Plain version of the port's mixed-batch paged attention against the JAX
-package: its oracle and its Pallas kernel in interpret mode.
+"""Plain versions of the port's attention kernels against the JAX package:
+its oracles and its Pallas kernels in interpret mode.
 
-The random-mix axes are those of ``test_paged_attention.py``'s property test
-(decode rows, prefill chunks, zero-width segments, padding rows, shuffled
-tables, corrupted dead pages, window, softcap, GQA), drawn from numpy seeds.
-fp32 throughout; rtol = atol = 2e-5 (the two sides sum in different orders).
+B1 (mixed paged): the random-mix axes of ``test_paged_attention.py``'s
+property test (decode rows, prefill chunks, zero-width segments, padding
+rows, shuffled tables, corrupted dead pages, window, softcap, GQA), drawn
+from numpy seeds. B2 (paged), B3 (decode) and B4 (flash): window, softcap,
+lengths of 1 and of the whole cache, NaN in every dead key, through the
+port's ``kernels.ops`` wrappers in the model layouts. fp32 throughout;
+rtol = atol = 2e-5 (the two sides sum in different orders).
 """
 from __future__ import annotations
 
@@ -17,6 +20,9 @@ import numpy as np  # noqa: E402
 
 from repro.kernels import ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.kernels import decode_attention as da  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 
@@ -169,3 +175,184 @@ def test_wrapper_checks_inputs():
     before = pa.mixed_paged_attention.launches
     pa.mixed_paged_attention(*args)  # CPU tensors: the plain version, no launch
     assert pa.mixed_paged_attention.launches == before
+
+
+# ---------------------------------------------------------------------------
+# B4 flash, B3 decode, B2 paged
+# ---------------------------------------------------------------------------
+
+WINDOW_CAP = [(None, None), (7, None), (None, 20.0), (5, 20.0)]
+
+
+def _np(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("window,softcap", WINDOW_CAP)
+@pytest.mark.parametrize("S", [1, 40])
+def test_flash_plain_matches_jax(S, window, softcap):
+    """B=2, H=4 over KV=2 (GQA), d=32; S=40 is no multiple of the Pallas
+    block (16), so the JAX wrapper pads where the port does not."""
+    q, k, v = _np(1, (2, S, 4, 32)), _np(2, (2, S, 2, 32)), _np(3, (2, S, 2, 32))
+    t = torch.from_numpy
+    got = t_ops.flash_attention_bshd(t(q), t(k), t(v), window=window, softcap=softcap).numpy()
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)  # noqa: E731
+    oracle = jax_ref.flash_attention_ref(tr(q), tr(k), tr(v), window=window, softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(oracle.transpose(0, 2, 1, 3)), **TOL)
+    pallas = ops.flash_attention_bshd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      window=window, softcap=softcap, interpret=True,
+                                      block_q=16, block_k=16)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+def test_flash_plain_full_attention_matches_jax():
+    q, k, v = _np(4, (1, 24, 2, 16)), _np(5, (1, 24, 2, 16)), _np(6, (1, 24, 2, 16))
+    t = torch.from_numpy
+    got = fa.flash_attention(t(q), t(k), t(v), causal=False).numpy()
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)  # noqa: E731
+    expect = jax_ref.flash_attention_ref(tr(q), tr(k), tr(v), causal=False)
+    np.testing.assert_allclose(got, np.asarray(expect.transpose(0, 2, 1, 3)), **TOL)
+
+
+def test_flash_plain_reads_strided_cache_prefix():
+    """The prompt over itself, read as a prefix view of a larger cache whose
+    unwritten tail is NaN: the same as the contiguous keys."""
+    q, k, v = _np(7, (2, 9, 4, 16)), _np(8, (2, 9, 2, 16)), _np(9, (2, 9, 2, 16))
+    kc = np.full((2, 32, 2, 16), np.nan, np.float32)
+    vc = kc.copy()
+    kc[:, :9], vc[:, :9] = k, v
+    t = torch.from_numpy
+    view_k, view_v = t(kc)[:, :9], t(vc)[:, :9]
+    assert not view_k.is_contiguous()
+    np.testing.assert_array_equal(fa.flash_attention(t(q), view_k, view_v).numpy(),
+                                  fa.flash_attention(t(q), t(k), t(v)).numpy())
+
+
+def _decode_case(seed, dead_fill):
+    """B=4 rows of a 48-token cache, lengths 1 .. S, dead tail = dead_fill."""
+    B, S, KV, G, d = 4, 48, 2, 2, 32
+    q = _np(seed, (B, 1, KV * G, d))
+    k, v = _np(seed + 1, (B, S, KV, d)), _np(seed + 2, (B, S, KV, d))
+    lengths = np.asarray([1, 17, 33, S], np.int32)
+    for b, n in enumerate(lengths):
+        k[b, n:], v[b, n:] = dead_fill, -dead_fill
+    return q, k, v, lengths
+
+
+@pytest.mark.parametrize("window,softcap", WINDOW_CAP)
+def test_decode_plain_matches_jax(window, softcap):
+    q, k, v, lengths = _decode_case(10, 999.0)
+    t = torch.from_numpy
+    got = t_ops.decode_attention_bhd(t(q), t(k), t(v), t(lengths), window=window,
+                                     softcap=softcap).numpy()
+    B, _, H, d = q.shape
+    KV = k.shape[2]
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)  # noqa: E731
+    oracle = jax_ref.decode_attention_ref(jnp.asarray(q[:, 0].reshape(B, KV, H // KV, d)),
+                                          tr(k), tr(v), jnp.asarray(lengths), window=window,
+                                          softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(oracle).reshape(B, 1, H, d), **TOL)
+    pallas = ops.decode_attention_bhd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(lengths), window=window, softcap=softcap,
+                                      interpret=True, block_k=16)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+def test_decode_plain_never_reads_nan_dead_keys():
+    t = torch.from_numpy
+    clean = _decode_case(20, 999.0)
+    poisoned = _decode_case(20, np.nan)
+    for window, softcap in WINDOW_CAP:
+        a = t_ops.decode_attention_bhd(*map(t, clean), window=window, softcap=softcap)
+        b = t_ops.decode_attention_bhd(*map(t, poisoned), window=window, softcap=softcap)
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _paged_case(seed, page, dead_fill):
+    """N=4 rows of lengths 1 .. nb * page over a shuffled pool whose dead
+    pages and dead page tails hold dead_fill."""
+    rng = np.random.default_rng(seed)
+    N, KV, G, d, nb = 4, 2, 2, 32, 5
+    P = N * nb + 3
+    q = rng.standard_normal((N, KV * G, d)).astype(np.float32)
+    pool_k = rng.standard_normal((P, page, KV, d)).astype(np.float32)
+    pool_v = rng.standard_normal((P, page, KV, d)).astype(np.float32)
+    lengths = np.asarray([1, page + 3, 3 * page, nb * page], np.int32)
+    ids = rng.permutation(P)
+    tables = ids[:N * nb].reshape(N, nb).astype(np.int32)
+    live = np.zeros((P, page), bool)
+    for n, L in enumerate(lengths):
+        for j in range(L):
+            live[tables[n, j // page], j % page] = True
+    pool_k[~live], pool_v[~live] = dead_fill, -dead_fill
+    return q, pool_k, pool_v, lengths, tables
+
+
+@pytest.mark.parametrize("window,softcap", WINDOW_CAP)
+@pytest.mark.parametrize("page", [1, 8])
+def test_paged_rows_plain_matches_jax(page, window, softcap):
+    q, pk, pv, lengths, tables = _paged_case(30, page, 999.0)
+    t = torch.from_numpy
+    got = t_ops.paged_attention_rows(t(q), t(pk), t(pv), t(lengths), t(tables), window=window,
+                                     softcap=softcap).numpy()
+    j = [jnp.asarray(a) for a in (q, pk, pv, lengths, tables)]
+    expect = ops.paged_attention_rows(*j, window=window, softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(expect), **TOL)
+    pallas = ops.paged_attention_rows(*j, window=window, softcap=softcap, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
+
+
+def test_paged_plain_never_reads_nan_dead_pages():
+    t = torch.from_numpy
+    for page in (1, 8):
+        clean = _paged_case(40, page, 999.0)
+        poisoned = _paged_case(40, page, np.nan)
+        for window, softcap in WINDOW_CAP:
+            a = t_ops.paged_attention_rows(*map(t, clean), window=window, softcap=softcap)
+            b = t_ops.paged_attention_rows(*map(t, poisoned), window=window, softcap=softcap)
+            np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_dense_cache_as_one_page_matches_decode():
+    """The dense engine's call: B2 over a (slots, max_len) cache as pages of
+    max_len tokens with table slots[:, None] computes B3 on those rows."""
+    q, k, v, lengths = _decode_case(50, np.nan)
+    t = torch.from_numpy
+    B, _, H, d = q.shape
+    KV = k.shape[2]
+    slots = np.asarray([[2], [0], [3], [1]], np.int32)
+    perm = slots[:, 0]
+    qg = t(q).reshape(B, KV, H // KV, d)
+    got = pa.paged_attention(qg, t(k), t(v), t(lengths[perm]), t(slots))
+    expect = da.decode_attention(qg, t(k[perm]), t(v[perm]), t(lengths[perm]))
+    np.testing.assert_array_equal(got.numpy(), expect.numpy())
+
+
+def test_split_count_fills_the_card_without_short_splits():
+    assert da.split_count(8, 8192) == 32  # serial decode: 8 (row, head) pairs
+    assert da.split_count(8, 600) == 3  # no split below 256 keys of capacity
+    assert da.split_count(520 * 8, 8192) == 1  # a prefill chunk's rows fill the card
+    assert da.split_count(64, 8192) == 5
+
+
+def test_new_wrappers_check_inputs_and_never_count_cpu_calls():
+    q, k, v, lengths = (torch.from_numpy(a) for a in _decode_case(60, 0.0))
+    B, _, H, d = q.shape
+    qg = q.reshape(B, 2, H // 2, d)
+    before = (da.decode_attention.launches, pa.paged_attention.launches,
+              fa.flash_attention.launches)
+    with pytest.raises(ValueError):
+        da.decode_attention(qg, k, v, lengths.long())  # lengths must be int32
+    with pytest.raises(ValueError):
+        da.decode_attention(qg, k[:, :, :1], v[:, :, :1], lengths)  # KV heads differ
+    with pytest.raises(TypeError):
+        da.decode_attention(qg, k.double(), v.double(), lengths)
+    with pytest.raises(ValueError):
+        pa.paged_attention(qg, k, v, lengths, torch.zeros((B, 1), dtype=torch.int64))
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v[:, :3])
+    da.decode_attention(qg, k, v, lengths)
+    pa.paged_attention(qg, k, v, lengths, torch.arange(B, dtype=torch.int32)[:, None])
+    fa.flash_attention(q.expand(B, 4, H, d).contiguous(), k[:, :4], v[:, :4])
+    assert (da.decode_attention.launches, pa.paged_attention.launches,
+            fa.flash_attention.launches) == before

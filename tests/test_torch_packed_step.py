@@ -22,7 +22,7 @@ from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduce_config as t_reduce_config  # noqa: E402
 from repro_torch.core.packed_step import PagedView, packed_step  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
-from repro_torch.weights import from_jax_params, pool_from_jax  # noqa: E402
+from repro_torch.weights import from_jax_params, caches_from_jax  # noqa: E402
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PAGE, N_SLOTS, PPS = 4, 3, 8  # page size, decode slots, pages per slot
@@ -73,7 +73,7 @@ def test_packed_step_matches_jax():
 
     model = build_model(cfg_t, dtype=torch.float32, device="cpu")
     params = from_jax_params(jax.tree.map(np.asarray, jparams), cfg_t)
-    tpool = pool_from_jax(pool, cfg_t)
+    tpool = caches_from_jax(pool, cfg_t)
     t = torch.from_numpy
     paged = PagedView(t(c["bt"]), PAGE, cu_q_lens=t(c["cu"]), kv_lens=t(c["kv"]),
                       seg_slots=t(c["seg_slots"]))
@@ -87,7 +87,7 @@ def test_packed_step_matches_jax():
     # padding rows attend differently on the two sides (zeros vs clamped
     # garbage), so from the second layer on their K/V in the scratch page
     # differ; every real page must match
-    expect = pool_from_jax(jax.tree.map(np.asarray, jpool), cfg_t)
+    expect = caches_from_jax(jax.tree.map(np.asarray, jpool), cfg_t)
     scratch = N_SLOTS * PPS
     for layer, (got_l, exp_l) in enumerate(zip(tpool, expect)):
         for kind in ("k", "v"):
@@ -95,6 +95,6 @@ def test_packed_step_matches_jax():
                                        exp_l[kind][:scratch].numpy(), **TOL,
                                        err_msg=f"layer {layer} {kind}")
     # the step really wrote: the decode rows' new keys differ from the old pool
-    old = pool_from_jax(pool, cfg_t)
+    old = caches_from_jax(pool, cfg_t)
     page, off = c["bt"][0, 12 // PAGE], 12 % PAGE
     assert not np.allclose(tpool[0]["k"][page, off].numpy(), old[0]["k"][page, off].numpy())
