@@ -16,7 +16,10 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   PyTorch library call: B1 mixed_paged_attention, B2
                   paged_attention (pages of 1, 16 and max_len; the dense
                   engine's decode-only and prefill-bearing steps), B3
-                  decode_attention, B4 flash_attention
+                  decode_attention, B4 flash_attention; B5 ssd_chunk_scan at
+                  Mamba2-2.7B's widths (100, 512 and 4096 tokens, the
+                  overflow case), two groups and reduced widths, y and the
+                  final state held apart, dropping h0 or the carry rejected
   reduced_serve   the paged engine at reduced width in fp32 on the card (kernel)
                   and on the CPU (plain version): the same greedy tokens
   engine_bf16     the engine in bf16 at Llama3.1-8B's attention heads, reduced
@@ -25,6 +28,9 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   reduced_serial  reduced width, fp32, on the card: serial per-request prefill +
                   decode (B4, B3), the paged engine (B1) and the dense engine (B2)
                   give the same greedy tokens, and the CPU's serial run too
+  reduced_two_call reduced mamba2-2.7b in fp32: the two-call engine on the card
+                  (B5) and on the CPU and the serial path on the card give the
+                  same greedy tokens
   serve           the port's Engine (paged, B1) on Llama3.1-8B at full width, all
                   32 layers, bf16, seeded random weights: 8 requests, 32 new
                   tokens each; then a profiled window (serve_profile)
@@ -37,6 +43,11 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   over it
   micro           kernels_micro's two comparisons at its full shapes: dense (B3)
                   vs ragged paged (B2) decode, unified mixed (B1) vs per-token (B2)
+  serve_mamba     SERVE's workload through the two-call engine on Mamba2-2.7B at
+                  full width, all 64 layers, bf16 (B5 in every layer of every
+                  prefill segment), after a checked pass (serve_mamba_check:
+                  every layer's B5 call of one segment that carries a state
+                  against the plain version); then a profiled window
 
 then the kernels line, the card's name and power limit as nvidia-smi gives
 them, and, last, {"ok": true, "device": {...}}. Any failure raises: the
@@ -45,6 +56,7 @@ script exits nonzero and prints no result. Without a CUDA card it exits 1.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -74,7 +86,10 @@ KERNELS = {
                          "src/repro/kernels/decode_attention.py:92"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:97"),
+    "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd_chunk_scan.cu",
+                       "src/repro/kernels/ssd.py:81"),
 }
+NO_LIBRARY = "none: no one PyTorch call computes the SSD chunk scan (a causal, decayed scan)"
 
 
 def emit(obj) -> None:
@@ -225,11 +240,12 @@ def device_ms(torch, fn, reps, warmup=2):
 
 
 def timings(torch, kernel, plain, library, reps):
-    """Device times of the kernel, its plain version and the library call,
-    and the kernel's event-timed span (host enqueue included)."""
+    """Device times of the kernel, its plain version and the library call
+    (None where no one PyTorch call computes the function), and the kernel's
+    event-timed span (host enqueue included)."""
     k_ms, how, parts = device_ms(torch, kernel, reps)
     p_ms = device_ms(torch, plain, 2, warmup=1)[0]
-    l_ms = device_ms(torch, library, reps)[0]
+    l_ms = device_ms(torch, library, reps)[0] if library is not None else None
     return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, timing=how,
                 kernel_parts=parts, kernel_event_ms=time_ms(torch, kernel, reps))
 
@@ -752,6 +768,151 @@ def single_query_and_flash_parity(torch):
 
 
 # ---------------------------------------------------------------------------
+# kernel_parity: B5 ssd_chunk_scan
+# ---------------------------------------------------------------------------
+
+
+def ssd_case(torch, seed, B, S, *, nh, hd, G, ds, dtype, mamba_decay=True, dt_top=False):
+    """One Mamba2 layer's B5 inputs on the card. x, B and C are column slices
+    of one (B, S, nh hd + 2 G ds) conv output, read through its strides as
+    ``mamba2_apply`` hands them over; h0 is a carried state. With
+    ``mamba_decay`` the decay rates are Mamba2-2.7B's own (A_log = log(1..nh),
+    dt = softplus(raw + dt_bias) with dt_bias from the init's range), else
+    A = -exp(0.3 N) and dt = softplus(N); ``dt_top`` pins dt at the top of
+    the init's range, 0.1, where the strongest head's decay exponent falls by
+    8 a token."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    d_in = nh * hd
+    xbc = torch.randn((B, S, d_in + 2 * G * ds), generator=gen, device=dev)
+    xbc[..., d_in:] *= 0.5
+    xbc = xbc.to(dtype)
+    x = xbc[..., :d_in].unflatten(-1, (nh, hd))
+    Bm = xbc[..., d_in:d_in + G * ds].unflatten(-1, (G, ds))
+    Cm = xbc[..., d_in + G * ds:].unflatten(-1, (G, ds))
+    raw = torch.randn((B, S, nh), generator=gen, device=dev)
+    if mamba_decay:
+        A = -torch.arange(1, nh + 1, dtype=torch.float32, device=dev)
+        u = torch.rand((nh,), generator=gen, device=dev)
+        dt_init = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
+        dt = F.softplus(0.5 * raw + torch.log(torch.expm1(dt_init)))
+        if dt_top:
+            dt = torch.full_like(dt, 0.1)
+    else:
+        A = -torch.exp(0.3 * torch.randn((nh,), generator=gen, device=dev))
+        dt = F.softplus(raw)
+    h0 = torch.randn((B, nh, hd, ds), generator=gen, device=dev)
+    return dict(x=x, dt=dt, A=A, Bm=Bm, Cm=Cm, h0=h0)
+
+
+def ssd_work(case):
+    """Bytes (x, dt, A, B, C and h0 read once; y and hT written once) and
+    operations of the chunked scan at the kernel's chunk L on this case's
+    sequence: per chunk C B^T per group (2 L^2 ds), and per head the
+    lower-triangular W x (L (L + 1) hd), the inter-chunk C h (2 L ds hd) and
+    the state update (2 L hd ds)."""
+    from repro_torch.kernels.ref import SSD_CHUNK as L
+
+    x, Bm = case["x"], case["Bm"]
+    B, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    elem = x.element_size()
+    nbytes = (2 * x.numel() * elem + 2 * Bm.numel() * elem + case["dt"].numel() * 4 + nh * 4
+              + 2 * B * nh * hd * ds * 4)
+    nc = -(-S // L)
+    flops = B * nc * (G * 2 * L * L * ds + nh * (L * (L + 1) * hd + 4 * L * ds * hd))
+    return nbytes, flops
+
+
+def ssd_no_carry(case):
+    """The plain version with the state dropped between the kernel's chunks:
+    each chunk starts again from h0."""
+    import torch
+
+    from repro_torch.kernels.ref import SSD_CHUNK as L
+    from repro_torch.kernels.ref import ssd_chunk_ref
+
+    S = case["x"].shape[1]
+    parts = [ssd_chunk_ref(*(case[k][:, t:t + L].float() for k in ("x", "dt")), case["A"],
+                           *(case[k][:, t:t + L].float() for k in ("Bm", "Cm")), case["h0"])[0]
+             for t in range(0, S, L)]
+    return torch.cat(parts, dim=1)
+
+
+def ssd_rows(t):
+    """y (B, S, nh, hd) as token rows, hT (B, nh, hd, ds) as head rows, for
+    ``tol_used``."""
+    return t.reshape(t.shape[0] * t.shape[1], t.shape[2], t.shape[3], 1)
+
+
+def run_ssd_case(torch, name, case):
+    from repro_torch.kernels.ref import SSD_CHUNK, ssd_chunk_ref
+    from repro_torch.kernels.ssd import ssd_chunk_scan
+
+    x = case["x"]
+    dtype = str(x.dtype).replace("torch.", "")
+    args = (x, case["dt"], case["A"], case["Bm"], case["Cm"], case["h0"])
+    y, hT = ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    fargs = (x.float(), case["dt"], case["A"], case["Bm"].float(), case["Cm"].float())
+    y_p, h_p = ssd_chunk_ref(*fargs, case["h0"])
+    # the check must see a kernel that dropped h0 or the carry between chunks
+    faults = {"no_h0": ssd_rows(ssd_chunk_ref(*fargs)[0]), "no_carry": ssd_rows(ssd_no_carry(case))}
+    B, S, nh, hd = x.shape
+    G, ds = case["Bm"].shape[2], case["Bm"].shape[3]
+    rec = parity_record(torch, name, "ssd_chunk_scan", dtype, ssd_rows(y), ssd_rows(y_p), faults,
+                        dict(batch=B, seq=S, nh=nh, hd=hd, groups=G, ds=ds, h0=True,
+                             kernel_chunk=SSD_CHUNK, strided_xbc=not x.is_contiguous()))
+    # the final state is fp32 on both sides, from the same inputs
+    h_used = tol_used(ssd_rows(hT), ssd_rows(h_p), "float32")
+    cum = torch.cumsum(case["dt"] * case["A"], dim=1)
+    L = min(S, SSD_CHUNK)
+    rec.update(hT_max_abs_err=float((hT - h_p).abs().max()), hT_tol_used=h_used,
+               hT_finite=bool(torch.isfinite(hT).all()),
+               # the largest exponent the masked triangle would take: the
+               # decay over a chunk of the strongest head
+               above_diag_max_exponent=float(-(cum[:, L - 1] - cum[:, 0]).min()))
+    rec["ok"] = rec["ok"] and h_used <= 1 and rec["hT_finite"]
+    nbytes, flops = ssd_work(case)
+    b, by = bound_of(nbytes, flops, dtype)
+    rec.update(**timings(torch, lambda: ssd_chunk_scan(*args), lambda: ssd_chunk_ref(*args), None,
+                         reps=10),
+               bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, library=NO_LIBRARY)
+    return finish(rec)
+
+
+def ssd_parity(torch):
+    """B5 cases: Mamba2-2.7B's widths (nh 80, hd 64, G 1, ds 128) at a
+    ragged 100 tokens, a 512-token serving segment and a 4096-token prompt;
+    two groups; the reduced model's widths; and the overflow case (the real
+    decay rates with dt at 0.1); fp32 and bf16, h0 given throughout."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    m2 = dict(nh=80, hd=64, G=1, ds=128)
+    cases = [
+        ("b5_s512_bf16", 1, 512, dict(m2, dtype=bf16)),
+        ("b5_s100_bf16", 1, 100, dict(m2, dtype=bf16)),
+        ("b5_s4096_bf16", 1, 4096, dict(m2, dtype=bf16)),
+        ("b5_s512_fp32", 1, 512, dict(m2, dtype=f32)),
+        ("b5_s100_fp32", 1, 100, dict(m2, dtype=f32)),
+        ("b5_s4096_fp32", 1, 4096, dict(m2, dtype=f32)),
+        ("b5_g2_fp32", 2, 256, dict(nh=8, hd=32, G=2, ds=32, dtype=f32, mamba_decay=False)),
+        ("b5_g2_bf16", 2, 200, dict(nh=8, hd=32, G=2, ds=32, dtype=bf16, mamba_decay=False)),
+        ("b5_reduced_fp32", 2, 77, dict(nh=16, hd=8, G=1, ds=16, dtype=f32)),
+        ("b5_overflow_fp32", 1, 300, dict(m2, dtype=f32, dt_top=True)),
+        ("b5_overflow_bf16", 1, 300, dict(m2, dtype=bf16, dt_top=True)),
+    ]
+    recs = {}
+    for i, (name, B, S, kw) in enumerate(cases):
+        case = ssd_case(torch, 500 + i, B, S, **kw)
+        recs[name] = run_ssd_case(torch, name, case)
+        del case
+        torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
 
@@ -881,14 +1042,15 @@ def engine_bf16(torch):
         raise AssertionError(f"engine_bf16: {rec}")
 
 
-def full_model(torch):
-    """Llama3.1-8B at full width, all 32 layers, bf16, weights drawn on the
-    card from seed 0; shared by serve, serve_dense and serial."""
+def full_model(torch, arch="llama3.1-8b"):
+    """A model at its published widths and depth, bf16, weights drawn on the
+    card from seed 0: Llama3.1-8B (all 32 layers; shared by serve,
+    serve_dense and serial) or Mamba2-2.7B (all 64 layers; serve_mamba)."""
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
-    model = build_model(get_config("llama3.1-8b"), dtype=torch.bfloat16, device="cuda")
+    model = build_model(get_config(arch), dtype=torch.bfloat16, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     return model, params, dict(init_s=time.perf_counter() - t0,
@@ -905,35 +1067,37 @@ def serve_prompts(vocab):
     return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
 
 
+def _wrappers_and_plain():
+    from repro_torch.kernels import decode_attention, flash_attention, paged_attention, ref, ssd
+
+    return ((paged_attention.mixed_paged_attention, paged_attention.paged_attention,
+             decode_attention.decode_attention, flash_attention.flash_attention,
+             ssd.ssd_chunk_scan),
+            (ref.mixed_attention_ref, ref.paged_attention_ref, ref.decode_attention_ref,
+             ref.flash_attention_ref, ref.ssd_chunk_ref))
+
+
 def reset_counts():
     """Every kernel's launch count and every plain version's count of calls
     on the card to 0, just before a main path runs."""
-    from repro_torch.kernels import decode_attention, flash_attention, paged_attention, ref
-
-    for fn in (paged_attention.mixed_paged_attention, paged_attention.paged_attention,
-               decode_attention.decode_attention, flash_attention.flash_attention):
+    wrappers, plains = _wrappers_and_plain()
+    for fn in wrappers:
         fn.launches = 0
-    for fn in (ref.mixed_attention_ref, ref.paged_attention_ref, ref.decode_attention_ref,
-               ref.flash_attention_ref):
+    for fn in plains:
         fn.cuda_calls = 0
 
 
 def read_counts():
     """Each kernel's launches and all plain versions' calls on the card."""
-    from repro_torch.kernels import decode_attention, flash_attention, paged_attention, ref
-
-    launches = {fn.__name__: fn.launches for fn in (
-        paged_attention.mixed_paged_attention, paged_attention.paged_attention,
-        decode_attention.decode_attention, flash_attention.flash_attention)}
-    plain = sum(fn.cuda_calls for fn in (ref.mixed_attention_ref, ref.paged_attention_ref,
-                                          ref.decode_attention_ref, ref.flash_attention_ref))
-    return launches, plain
+    wrappers, plains = _wrappers_and_plain()
+    return {fn.__name__: fn.launches for fn in wrappers}, sum(fn.cuda_calls for fn in plains)
 
 
 def serve_engine(torch, model, params, attn_kernel):
     """An engine with SERVE's settings and SERVE's requests submitted:
     ``paged`` over a page pool sized by the launcher's rule, ``dense`` over
-    a slot cache. Returns (engine, pool pages, pool basis, prompt lengths)."""
+    a slot cache (for Mamba2, the two-call path over its fixed state).
+    Returns (engine, pool pages, pool basis, prompt lengths)."""
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.launch.serve import sized_kv_pool
     from repro_torch.serving.request import Request
@@ -941,7 +1105,7 @@ def serve_engine(torch, model, params, attn_kernel):
     c = SERVE
     cfg = model.cfg
     dev = torch.device("cuda")
-    pool, basis = None, "dense slot cache"
+    pool, basis = None, "dense slot cache" if cfg.n_attn_layers else "two-call state"
     if attn_kernel == "paged":
         pool, basis = sized_kv_pool(cfg, dev, torch.bfloat16, c["max_batch"], c["max_len"],
                                     c["page"])
@@ -1011,7 +1175,9 @@ def dense_engine_check(torch, model, params):
 
 def serve(torch, smi, model, params, setup, attn_kernel="paged"):
     """SERVE's workload through the engine: ``paged`` (B1, the main path;
-    then a profiled window) or ``dense`` (B2, the dense fallback)."""
+    then a profiled window) or ``dense`` (B2, the dense fallback) for
+    Llama3.1-8B; for Mamba2-2.7B the two-call path (B5 in every layer of
+    every prefill segment; then a profiled window)."""
     import numpy as np
 
     from repro_torch.serving.request import State
@@ -1019,11 +1185,17 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged"):
     c = SERVE
     cfg = model.cfg
     eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel)
+    if eng.two_call:
+        phase, kernel = "serve_mamba", "ssd_chunk_scan"
+    elif attn_kernel == "paged":
+        phase, kernel = "serve", "mixed_paged_attention"
+    else:
+        phase, kernel = "serve_dense", "paged_attention"
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    step_ms, prefill_tok, decode_tok, has_prefill, step_tok = [], 0, 0, [], []
+    step_ms, prefill_tok, decode_tok, has_prefill, step_tok, segments = [], 0, 0, [], [], 0
     t_run = time.perf_counter()
     while eng.scheduler.has_work and eng.steps_run < 2000:
         t = time.perf_counter()
@@ -1036,9 +1208,9 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged"):
         decode_tok += len(plan.decode_rids)
         has_prefill.append(plan.total_prefill_tokens > 0)
         step_tok.append((plan.total_prefill_tokens, len(plan.decode_rids)))
+        segments += len(plan.prefill_segments)
     run_s = time.perf_counter() - t_run
     counts, plain_cuda = read_counts()
-    kernel = "mixed_paged_attention" if attn_kernel == "paged" else "paged_attention"
     launches = counts[kernel]
     reqs = [eng.scheduler.requests[r] for r in range(c["requests"])]
     done = all(r.state is State.DONE and len(r.output) == c["max_new"] for r in reqs)
@@ -1046,13 +1218,16 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged"):
     dec = [i for i, f in enumerate(has_prefill) if not f]
     pre_s = sum(step_ms[i] for i in pre) / 1e3
     dec_s = sum(step_ms[i] for i in dec) / 1e3
+    state_gib = (sum(t.numel() * t.element_size() for layer in eng.cache for t in layer.values())
+                 / 2**30)
     rec = dict(
-        phase="serve" if attn_kernel == "paged" else "serve_dense", attn_kernel=attn_kernel,
+        phase=phase, attn_kernel=eng.attn_kernel, two_call=eng.two_call,
         arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
         dtype="bfloat16", requests=c["requests"], prompt_lens=lens,
         max_new_tokens=c["max_new"], chunk=c["chunk"], max_decode_batch=c["max_batch"],
         max_concurrent_prefills=c["max_prefills"], kv_block=c["page"], max_len=c["max_len"],
-        pool_pages=pool, pool_basis=basis, **setup, steps=eng.steps_run, run_s=run_s,
+        pool_pages=pool, pool_basis=basis, cache_gib=state_gib, **setup, steps=eng.steps_run,
+        prefill_segments=segments, run_s=run_s,
         prefill_tokens=prefill_tok, decode_tokens=decode_tok,
         # end to end: every token the run computed over its whole window
         tok_per_s=(prefill_tok + decode_tok) / run_s,
@@ -1069,24 +1244,27 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged"):
         plain_cuda_calls=plain_cuda, nonfinite_logits=eng.nonfinite,
         all_completed=done, preemptions=eng.scheduler.stats.preemptions,
         outputs=[r.output for r in reqs], nvidia_smi=smi)
-    rec["ok"] = (done and launches == cfg.n_layers * eng.steps_run and plain_cuda == 0
-                 and eng.nonfinite == 0)
+    # the attention kernels launch once per layer and step; B5 once per
+    # layer and prefill segment (the decode call is plain PyTorch)
+    expect = cfg.n_layers * (segments if eng.two_call else eng.steps_run)
+    rec["ok"] = done and launches == expect and plain_cuda == 0 and eng.nonfinite == 0
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"{rec['phase']}: {rec}")
     del eng
     torch.cuda.empty_cache()
-    if attn_kernel == "paged":
-        profile_serve(torch, model, params)
+    if phase != "serve_dense":
+        profile_serve(torch, model, params, phase, kernel)
     return rec
 
 
-def profile_serve(torch, model, params):
+def profile_serve(torch, model, params, phase, kernel):
     """Where the device time of a serving run goes. One workload (a 2048- and
     a 1024-token prompt, 16 new tokens each) runs twice on fresh engines:
     untraced for its wall time, then under torch.profiler (device activity
-    only) for device time summed by kernel. The idle share is one minus the
-    traced device time over the untraced wall time."""
+    only) for device time summed by kernel (``kernel``'s own, GEMMs, the
+    rest). The idle share is one minus the traced device time over the
+    untraced wall time."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
@@ -1119,7 +1297,7 @@ def profile_serve(torch, model, params):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(max_steps=200)
         torch.cuda.synchronize()
-    groups, kernels = {"mixed_paged_attention": 0.0, "gemm": 0.0, "other": 0.0}, {}
+    groups, kernels = {kernel: 0.0, "gemm": 0.0, "other": 0.0}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops: their device time is their kernels'
@@ -1128,16 +1306,124 @@ def profile_serve(torch, model, params):
             continue
         kernels[evt.key] = kernels.get(evt.key, 0.0) + ms
         low = evt.key.lower()
-        group = ("mixed_paged_attention" if "mixed_paged_attention" in low else
+        group = (kernel if kernel in low else
                  "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet"))
                  else "other")
         groups[group] += ms
     busy = sum(groups.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    emit(dict(phase="serve_profile", steps=steps, traced_steps=eng.steps_run,
+    emit(dict(phase=f"{phase}_profile", steps=steps, traced_steps=eng.steps_run,
               wall_ms=wall_ms, device_ms=groups, device_busy_ms=busy,
               idle_share=(1 - busy / wall_ms) if busy else None, device_time_seen=busy > 0,
               top_kernels=[dict(name=k[:120], ms=v) for k, v in top]))
+
+
+def reduced_two_call(torch):
+    """Reduced mamba2-2.7b (2 layers) in fp32: the two-call engine on the card
+    (B5), the same engine on the CPU (plain version, itself held to the JAX
+    engine by the CPU tests) and the serial path on the card must give the
+    same greedy tokens. Slots are reused, and the engine's chunks of 8 hand
+    the state from segment to segment (B5's h0) where the serial path
+    prefills each prompt in one call."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.serial import serial_reference
+
+    cfg = reduce_config(get_config("mamba2-2.7b"), periods=2)
+    cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 23, 100)]
+    new, max_len = 12, 128
+    outs, steps, launches, segments = {}, {}, {}, {}
+    plain = 0
+    for device in ("cpu", "cuda"):
+        model = build_model(cfg, dtype=torch.float32, device=device)
+        eng = _engine_class()(model, _to(params, device), SchedulerConfig(
+            chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
+            max_concurrent_prefills=2), max_len=max_len, device=device)
+        for rid, prompt in enumerate(prompts):
+            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+        reset_counts()
+        segments[device] = 0
+        while eng.scheduler.has_work and eng.steps_run < 400:
+            plan = eng.step(now=float(eng.steps_run))
+            if plan is None:
+                break
+            segments[device] += len(plan.prefill_segments)
+        counts, p_calls = read_counts()
+        launches[device] = counts["ssd_chunk_scan"]
+        plain += p_calls
+        outs[device] = [eng.scheduler.requests[r].output for r in range(len(prompts))]
+        steps[device] = eng.steps_run
+    reset_counts()
+    outs["serial_cuda"] = [serial_reference(model, _to(params, "cuda"), p, new, max_len=max_len)
+                           for p in prompts]
+    counts, p_calls = read_counts()
+    launches["serial_cuda"] = counts["ssd_chunk_scan"]
+    plain += p_calls
+    L = cfg.n_layers
+    rec = dict(phase="reduced_two_call", arch=cfg.name, layers=L, dtype="float32", steps=steps,
+               prefill_segments=segments["cuda"], launches=launches, plain_cuda_calls=plain,
+               engine_card_equals_cpu=outs["cuda"] == outs["cpu"],
+               engine_equals_serial_card=outs["cuda"] == outs["serial_cuda"])
+    rec["ok"] = (rec["engine_card_equals_cpu"] and rec["engine_equals_serial_card"]
+                 and plain == 0 and launches["cpu"] == 0
+                 and launches["cuda"] == L * segments["cuda"]
+                 and launches["serial_cuda"] == L * len(prompts)
+                 and all(len(o) == new for o in outs["cuda"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"reduced_two_call: {rec} {outs}")
+
+
+def mamba_engine_check(torch, model, params):
+    """SERVE's workload through the two-call engine at full width, checked
+    before ``serve_mamba`` times it: every layer's B5 call of the first
+    prefill segment that carries a state from an earlier chunk (h0 not
+    zero) is also computed by the plain version in fp32 from the same bf16
+    tensors, y held to the bf16 row tolerance and hT to the fp32 one. Stops once that
+    segment is checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ssd_chunk_ref
+
+    L = model.cfg.n_layers
+    eng, _, _, _ = serve_engine(torch, model, params, "auto")
+    checked, real = [], ops.ssd
+
+    def check(x, dt, A, Bm, Cm, h0=None):
+        y, hT = real(x, dt, A, Bm, Cm, h0)
+        if checked or bool(h0.abs().max() > 0):  # the segment's first layer decides
+            # the plain version in fp32 from the same bf16 tensors, as in kernel_parity
+            y_p, h_p = ssd_chunk_ref(x.float(), dt, A, Bm.float(), Cm.float(), h0)
+            checked.append(dict(seq=x.shape[1], y=tol_used(ssd_rows(y.float()), ssd_rows(y_p),
+                                                           "bfloat16"),
+                                hT=tol_used(ssd_rows(hT), ssd_rows(h_p), "float32"),
+                                finite=bool(torch.isfinite(y).all() and torch.isfinite(hT).all())))
+        return y, hT
+
+    ops.ssd = check
+    try:
+        while eng.scheduler.has_work and len(checked) < L:
+            eng.step(now=float(eng.steps_run))
+    finally:
+        ops.ssd = real
+    rec = dict(phase="serve_mamba_check", steps_run=eng.steps_run, calls_checked=len(checked),
+               seqs=sorted({c["seq"] for c in checked}),
+               y_tol_used_max=max((c["y"] for c in checked), default=None),
+               hT_tol_used_max=max((c["hT"] for c in checked), default=None),
+               finite=all(c["finite"] for c in checked))
+    rec["ok"] = (len(checked) == L and rec["finite"] and rec["y_tol_used_max"] <= 1
+                 and rec["hT_tol_used_max"] <= 1)
+    emit(rec)
+    del eng
+    torch.cuda.empty_cache()
+    if not rec["ok"]:
+        raise AssertionError(f"serve_mamba_check: {rec}")
 
 
 def reduced_serial(torch):
@@ -1396,15 +1682,24 @@ def main() -> int:
 
     parity = kernel_parity(torch)
     parity.update(single_query_and_flash_parity(torch))
+    parity.update(ssd_parity(torch))
     reduced_serve(torch)
     engine_bf16(torch)
     reduced_serial(torch)
+    reduced_two_call(torch)
     model, params, setup = full_model(torch)
     served = serve(torch, smi, model, params, setup)
     dense_engine_check(torch, model, params)
     served_dense = serve(torch, smi, model, params, setup, attn_kernel="dense")
     serial_rec = serial(torch, smi, model, params, served)
+    del model, params
+    torch.cuda.empty_cache()
     micro(torch, parity)
+    model, params, setup = full_model(torch, "mamba2-2.7b")
+    mamba_engine_check(torch, model, params)
+    served_mamba = serve(torch, smi, model, params, setup, attn_kernel="auto")
+    del model, params
+    torch.cuda.empty_cache()
 
     # each kernel: its launches on the main path that runs it, timed at that
     # path's shapes (the first one heads the line); plain-version calls on
@@ -1412,7 +1707,8 @@ def main() -> int:
     paths = {"mixed_paged_attention": (served, ["mixed_bf16"]),
              "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16"]),
              "decode_attention": (serial_rec, ["b3_serial_bf16"]),
-             "flash_attention": (serial_rec, ["b4_prompt4096_bf16"])}
+             "flash_attention": (serial_rec, ["b4_prompt4096_bf16"]),
+             "ssd_chunk_scan": (served_mamba, ["b5_s512_bf16", "b5_s100_bf16"])}
     lines = []
     for kname, (source, replaces) in KERNELS.items():
         path, cases = paths[kname]
@@ -1424,7 +1720,8 @@ def main() -> int:
             max_abs_err=main_case["max_abs_err"], tol_used=main_case["tol_used"],
             ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
-            library_ms=main_case["library_ms"], timing=main_case["timing"],
+            library_ms=main_case["library_ms"], library=main_case["library"],
+            timing=main_case["timing"],
             event_ms=main_case["kernel_event_ms"], shape_case=cases[0], main_path=path["phase"],
             main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],
                                   plain_ms=parity[n]["plain_ms"],

@@ -1,4 +1,4 @@
-"""Model-layout entry points of the attention kernels.
+"""Model-layout entry points of the port's kernels.
 
 The counterparts of the JAX package's ``kernels/ops.py`` wrappers, with the
 same signatures minus ``interpret``/``use_kernel``: each wrapper below runs
@@ -8,7 +8,8 @@ Unlike the JAX wrappers they neither transpose ``(B, S, KV, d)`` caches to
 copy a whole cache on every decode call. The kernels read the model layout
 through its strides and mask their ragged edges themselves.
 
-``ssd`` waits for the SSD chunk-scan kernel (ROADMAP.md A9/B5).
+``ssd`` likewise hands the model's x, B and C slices to the chunk scan
+without padding them to a chunk multiple or transposing them.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import torch
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import mixed_paged_attention, paged_attention
+from repro_torch.kernels.ssd import ssd_chunk_scan
 
 
 def flash_attention_bshd(q, k, v, *, causal: bool = True, window: Optional[int] = None,
@@ -64,3 +66,13 @@ def mixed_attention_rows(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, 
     o = mixed_paged_attention(q.reshape(N, KV, H // KV, d), k_pages, v_pages, cu_q_lens,
                               kv_lens, block_tables, window=window, softcap=softcap, tiles=tiles)
     return o.reshape(N, H, d)
+
+
+def ssd(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None):
+    """Model-layout wrapper, the counterpart of JAX's ops.ssd and ssd_chunked.
+
+    x: (B,S,nh,hd), dt: (B,S,nh) fp32, A: (nh,), Bm/Cm: (B,S,G,ds), h0:
+    (B,nh,hd,ds) fp32 or None. Returns (y (B,S,nh,hd), hT (B,nh,hd,ds)).
+    The chunk length is the kernel's (``ref.SSD_CHUNK``); JAX's ``chunk``
+    argument has no counterpart."""
+    return ssd_chunk_scan(x, dt.float(), A.float(), Bm, Cm, h0)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels.
+"""Plain PyTorch versions of the port's kernels: attention (B1-B4) and the
+Mamba2 SSD chunk scan (B5).
 
 They compute what the JAX package's ``kernels/ref.py`` oracles compute, in
 fp32, and are what the kernel wrappers run on CPU tensors. Unlike the JAX
@@ -12,6 +13,11 @@ Layouts are the port's kernels', which read the model's tensors in place:
 keys (the JAX oracle ``(B, H, S, d)`` and ``(B, KV, S, d)``), and
 ``decode_attention_ref`` a ``(B, S, KV, d)`` cache (JAX ``(B, KV, S, d)``).
 
+``ssd_chunk_ref`` is B5's plain version: the JAX package's model-side
+``ssd_chunked`` in the layout the kernel reads (model layout, ragged ``S``
+zero-padded to its chunk, fp32 throughout, ``y`` cast to ``x``'s dtype);
+``ssd_ref`` is the sequential recurrence both are held to.
+
 Each function's ``cuda_calls`` counts its calls on CUDA tensors, so a run
 can show that its main path never fell back to a plain version.
 """
@@ -21,8 +27,10 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1.0e30
+SSD_CHUNK = 64  # tokens per chunk of B5 (its kernel's chunk)
 
 
 def _softcap(s: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -159,3 +167,87 @@ def mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *
         out[r0:r1] = _attend(q[r0:r1].float(), kc[None], vc[None], ok, softcap)
     return out.to(q.dtype)
 
+
+
+def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """Zero-pad axis 1 (the sequence) of ``t`` by ``pad`` rows, in fp32."""
+    t = t.float()
+    return F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) if pad else t
+
+
+@_counts_cuda_calls
+def ssd_chunk_ref(x, dt, A, Bm, Cm, h0=None, *, chunk: int = SSD_CHUNK):
+    """Chunked SSD scan (Mamba2's state-space duality), as ``ssd_chunked``.
+
+    x: (B,S,nh,hd); dt: (B,S,nh) softplus'd step sizes; A: (nh,) negative
+    decay rates; Bm/Cm: (B,S,G,ds), head h reading group h // (nh // G);
+    h0: (B,nh,hd,ds) initial state or None (zeros). Returns y (B,S,nh,hd) in
+    x's dtype and the final state hT (B,nh,hd,ds) fp32. Padding tokens have
+    dt = 0, so they neither decay nor feed the state: hT is exact for any S.
+
+    Within a chunk, y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+    + exp(cum_i) C_i . h_start; the decay is exponentiated only on and below
+    the diagonal (above it cum_i - cum_j > 0 can overflow to inf, and inf *
+    0 is NaN).
+    """
+    Bsz, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    rep = nh // G
+    L = chunk
+    pad = (-S) % L
+    nc = (S + pad) // L
+    xf = _pad_seq(x, pad).reshape(Bsz, nc, L, nh, hd)
+    dtf = _pad_seq(dt, pad).reshape(Bsz, nc, L, nh)
+    Bf = _pad_seq(Bm, pad).reshape(Bsz, nc, L, G, ds)
+    Cf = _pad_seq(Cm, pad).reshape(Bsz, nc, L, G, ds)
+    cum = torch.cumsum(dtf * A.float(), dim=2)  # (B,nc,L,nh), within each chunk
+
+    # intra-chunk: w[i,j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i
+    CB = torch.einsum("bclgs,bcmgs->bcglm", Cf, Bf).repeat_interleave(rep, dim=2)
+    ci = cum.permute(0, 1, 3, 2)  # (B,nc,nh,L)
+    diff = ci[..., :, None] - ci[..., None, :]
+    lower = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    dec = torch.exp(torch.where(lower, diff, float("-inf")))
+    w = CB * dec * dtf.permute(0, 1, 3, 2)[..., None, :]
+    y = torch.einsum("bchlm,bcmhd->bclhd", w, xf)
+
+    # each chunk's own contribution to the state, then the recurrence
+    Bh = Bf.repeat_interleave(rep, dim=3)  # (B,nc,L,nh,ds)
+    Ch = Cf.repeat_interleave(rep, dim=3)
+    wj = torch.exp(cum[:, :, -1:, :] - cum) * dtf  # (B,nc,L,nh)
+    Sc = torch.einsum("bclh,bclhd,bclhs->bchds", wj, xf, Bh)
+    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,nc,nh)
+    h = (torch.zeros((Bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    starts = []
+    for c in range(nc):
+        starts.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + Sc[:, c]
+    h_start = torch.stack(starts, dim=1)  # (B,nc,nh,hd,ds): the state at each chunk's start
+
+    # inter-chunk: y_i += exp(cum_i) C_i . h_start
+    y = y + torch.einsum("bclhs,bchds->bclhd", Ch * torch.exp(cum)[..., None], h_start)
+    return y.reshape(Bsz, nc * L, nh, hd)[:, :S].to(x.dtype), h
+
+
+def ssd_ref(x, dt, A, Bm, Cm, h0=None):
+    """Sequential (exact) SSD recurrence oracle, one token at a time.
+
+    x: (B,S,nh,hd), dt: (B,S,nh), A: (nh,), Bm/Cm: (B,S,G,ds), h0:
+    (B,nh,hd,ds) or None. Returns y (B,S,nh,hd) in x's dtype and hT
+    (B,nh,hd,ds) fp32."""
+    Bsz, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    rep = nh // G
+    Bh = Bm.repeat_interleave(rep, dim=2).float()  # (B,S,nh,ds)
+    Ch = Cm.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    h = (torch.zeros((Bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(S):
+        a = torch.exp(dtf[:, t] * Af)  # (B,nh)
+        upd = torch.einsum("bh,bhd,bhs->bhds", dtf[:, t], xf[:, t], Bh[:, t])
+        h = h * a[..., None, None] + upd
+        ys.append(torch.einsum("bhds,bhs->bhd", h, Ch[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h

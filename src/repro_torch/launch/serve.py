@@ -10,7 +10,9 @@ divided by one page's full-stack KV bytes in the pool dtype, and capped at the
 dense-equivalent layout (``max_batch * max_len`` tokens). On the CPU the cap
 is the size. ``--num-kv-blocks`` overrides both. ``--attn-kernel dense``
 serves from a dense ``(max_batch + 1, max_len)`` slot cache instead and
-sizes no pool. The flags mirror the JAX launcher's; swap preemption and the
+sizes no pool. An attention-free arch (``--arch mamba2-2.7b``) runs the
+two-call path over a fixed ``(max_batch + 1)``-row state and sizes no pool
+either; the launcher prints the state's bytes. The flags mirror the JAX launcher's; swap preemption and the
 prefix cache are not ported yet and raise.
 """
 from __future__ import annotations
@@ -46,6 +48,9 @@ def sized_kv_pool(cfg, device: torch.device, dtype: torch.dtype, max_batch: int,
     """(pool_blocks, basis): free device memory after the weights, less
     ``ACTIVATION_RESERVE``, over one block's KV bytes; capped at the
     dense-equivalent layout. ``basis`` says which bound was taken."""
+    if not cfg.n_attn_layers:
+        raise ValueError(f"{cfg.name} has no attention layers: it keeps a fixed state per "
+                         "slot, not a KV pool")
     dense_equiv = max_batch * max_len // kv_block
     floor = max(1, max_len // kv_block)  # the engine needs one max_len context
     if device.type != "cuda":
@@ -131,7 +136,9 @@ def main():
     params = model.init(torch.Generator(device=device).manual_seed(0))
 
     pool, pool_basis = args.num_kv_blocks, "flag"
-    if pool is None and args.attn_kernel == "dense":
+    if pool is None and not cfg.n_attn_layers:
+        pool_basis = "two-call state"  # no KV: a fixed state per slot
+    elif pool is None and args.attn_kernel == "dense":
         pool_basis = "dense slot cache"
     elif pool is None:
         pool, pool_basis = sized_kv_pool(cfg, device, dtype, args.max_batch, args.max_len,
@@ -207,14 +214,20 @@ def main():
         dump_json(args.attribution_json, eng.scheduler.ledger.as_dict())
         print(f"[launch.serve] attribution ledger written to {args.attribution_json}")
     alloc = eng.scheduler.mem.allocator
-    print(f"[launch.serve] mode=packed attn={eng.attn_kernel} "
+    if eng.two_call:  # a fixed state per slot: its bytes, not pool pages
+        nbytes = sum(t.numel() * t.element_size() for layer in eng.cache for t in layer.values())
+        memory = f"state={nbytes}B({pool_basis}:{device.type})"
+    else:
+        memory = (f"pool={alloc.peak_used_blocks}/{alloc.num_blocks}pages"
+                  f"({pool_basis}:{device.type})")
+    print(f"[launch.serve] mode={'two-call' if eng.two_call else 'packed'} "
+          f"attn={eng.attn_kernel} "
           f"policy={args.policy} steps={eng.steps_run} "
           f"completed={m['completed']}/{m['submitted']} "
           f"pack_eff={m['packing_efficiency']:.2f} "
           f"preemptions={int(m['preemptions'])} "
           f"swaps={int(m['swap_outs'])} "
-          f"pool={alloc.peak_used_blocks}/{alloc.num_blocks}pages"
-          f"({pool_basis}:{device.type}) "
+          f"{memory} "
           f"oob_stalls={int(m['out_of_block_stalls'])} "
           f"wm_stalls={int(m['watermark_stalls'])} "
           f"attn_savings={m['attn_padding_savings']:.2f} "

@@ -1,21 +1,24 @@
-"""Decoder-only GQA model: parameters, seeded init, the serial execution
-path and the KV page pool.
+"""Decoder-only model: parameters, seeded init, the serial execution path
+and the KV page pool.
 
 The PyTorch counterpart of the JAX package's ``Model`` for the archs the
-port serves so far (attention mixers, dense FFNs, no MLA/MoE/enc-dec). The
-parameter tree follows ``Model.init`` / ``stack.layer_init`` /
-``attention.attn_init`` key for key, except that layers are a Python list in
-layer order where JAX stacks them over scan periods.
+port serves so far (GQA attention and Mamba2 mixers, dense FFNs or none; no
+MLA/MoE/Mamba1/enc-dec). The parameter tree follows ``Model.init`` /
+``stack.layer_init`` / ``attention.attn_init`` / ``mamba.mamba2_init`` key
+for key, except that layers are a Python list in layer order where JAX
+stacks them over scan periods.
 
 The serial path is JAX's: ``forward`` (one-shot causal), ``init_cache``,
-``prefill`` and ``decode_step`` over a dense ``(B, max_len, KV, d)`` cache
-per layer, which they update in place and return. ``index`` is an int (one
+``prefill`` and ``decode_step`` over per-layer caches (a dense ``(B,
+max_len, KV, d)`` KV cache for attention, the conv and SSM state for
+Mamba2), which they update in place and return. ``index`` is an int (one
 offset for every row) or a ``(B,)`` tensor (one per row). ``loss`` waits for
 training.
 
 Parameters live on the model's device in the model's dtype (JAX keeps fp32
 masters and casts at use; serving has no optimizer, so the port stores what
-it computes with).
+it computes with), except Mamba2's ``mamba.FP32_LEAVES``, which JAX uses in
+fp32.
 """
 from __future__ import annotations
 
@@ -37,14 +40,18 @@ from repro_torch.models.layers import (
     softcap,
     truncated_normal,
 )
+from repro_torch.models.mamba import mamba2_init
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for configs whose model path is not ported yet."""
-    if cfg.encdec or any(s.mixer != "attn" for s in cfg.layer_specs):
+    if cfg.encdec:
         raise NotImplementedError(
-            f"{cfg.name}: SSM / hybrid / enc-dec models run the two-call path, "
-            "not ported yet (ROADMAP.md A9)")
+            f"{cfg.name}: encoder-decoder models (models/encdec.py, whisper-small) are not "
+            "ported yet (ROADMAP.md A9)")
+    if any(s.mixer not in ("attn", "mamba2") for s in cfg.layer_specs):
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba1 mixers (jamba-v0.1-52b) are not ported yet (ROADMAP.md A9)")
     if cfg.mla:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet (ROADMAP.md, deepseek-v2 slice)")
@@ -71,7 +78,7 @@ def _as_index(index: Index) -> Index:
     return index
 
 
-def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
+def _attn_init(cfg: ModelConfig, *, generator, dtype, device):
     kw = dict(generator=generator, dtype=dtype, device=device)
     d, hd = cfg.d_model, cfg.head_dim
     mixer = {
@@ -83,7 +90,14 @@ def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
     if cfg.qk_norm:
         mixer["q_norm"] = rms_norm_init(hd, dtype=dtype, device=device)
         mixer["k_norm"] = rms_norm_init(hd, dtype=dtype, device=device)
-    p = {"norm1": rms_norm_init(d, dtype=dtype, device=device), "mixer": mixer}
+    return mixer
+
+
+def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    d = cfg.d_model
+    init = _attn_init if spec.mixer == "attn" else mamba2_init
+    p = {"norm1": rms_norm_init(d, dtype=dtype, device=device), "mixer": init(cfg, **kw)}
     if cfg.post_norm:
         p["post_norm1"] = rms_norm_init(d, dtype=dtype, device=device)
     if spec.ffn != "none":
@@ -104,8 +118,9 @@ class Model:
         check_supported(self.cfg)
         self.device = torch.device(self.device)
         cfg = self.cfg
-        self.inv_freq = rope_freqs(cfg.head_dim, cfg.rotary_pct, cfg.rope_theta,
-                                   device=self.device)
+        # attention-free configs (n_heads = head_dim = 0) build no RoPE
+        self.inv_freq = (rope_freqs(cfg.head_dim, cfg.rotary_pct, cfg.rope_theta,
+                                    device=self.device) if cfg.n_attn_layers else None)
 
     def init(self, generator: torch.Generator):
         """Seeded random parameters on the model's device and dtype:
@@ -148,8 +163,9 @@ class Model:
         return self._head(params, rms_norm(params["final_norm"], h, self.cfg.norm_eps))
 
     def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None):
-        """Zeroed dense KV cache, one ``{"k", "v"}`` of (batch, max_len, KV,
-        d) per layer, in ``dtype`` (default: the model's)."""
+        """Zeroed per-layer caches: a dense KV cache ``{"k", "v"}`` of (batch,
+        max_len, KV, d) in ``dtype`` (default: the model's) per attention
+        layer, an fp32 ``{"conv", "ssm"}`` state per Mamba2 layer."""
         return stack.stack_cache_init(self.cfg, batch, max_len,
                                       dtype=dtype if dtype is not None else self.dtype,
                                       device=self.device)
@@ -162,8 +178,9 @@ class Model:
         cfg = self.cfg
         positions = _positions_from_index(index, B, T, self.device)
         # what every layer shares is built once: RoPE angles and the
-        # attention's metadata
-        call = cache_call(index, B, T, cfg.n_heads // cfg.n_kv_heads, self.device)
+        # attention's metadata (none without attention layers)
+        call = (cache_call(index, B, T, cfg.n_heads // cfg.n_kv_heads, self.device)
+                if cfg.n_attn_layers else None)
         h, cache = stack.stack_apply(params["layers"], cfg, self._embed(params, tokens),
                                      rope_angles(positions, self.inv_freq), caches=cache,
                                      call=call)

@@ -24,9 +24,16 @@ which an eager step does not need, and padding rows would cost a decode-only
 step the matmuls of a full chunk. Segments and table columns keep the JAX
 engine's pow2 padding; zero-width segments and unused columns cost nothing.
 
+Archs that cannot pack (Mamba2 here; JAX also Mamba1 hybrids and
+enc-dec) run JAX's two-call path instead (``_run_two_call``): one
+``Model.decode_step`` over the step's decode slots, then one
+``Model.prefill`` per packed prefill segment, each over its slot's state in
+``model.init_cache(n_slots + 1, max_len)``. They have no page pool and no
+block mirror.
+
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
 item: swap preemption and the prefix cache (with their staged async
-prefetch), and the two-call path of SSM / hybrid / enc-dec archs.
+prefetch), and the archs ``Model`` does not build (Mamba1, enc-dec).
 """
 from __future__ import annotations
 
@@ -71,10 +78,9 @@ class Engine:
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
-        if not supports_packed(model.cfg):
-            raise NotImplementedError(
-                f"{model.cfg.name}: the two-call engine path is not ported yet "
-                "(ROADMAP.md A9)")
+        # SSM archs cannot share a step's matmuls across rows of different
+        # requests' recurrent states: they run the two-call path
+        self.two_call = not supports_packed(model.cfg)
         if sched_cfg.preemption == "swap":
             raise NotImplementedError(
                 "swap preemption is not ported yet (ROADMAP.md A5: the engine's swap, "
@@ -85,11 +91,12 @@ class Engine:
                 "prefix-cache and async-prefetch staging)")
         self.page_size = sched_cfg.kv_block_size
         if attn_kernel == "auto":
-            attn_kernel = "paged" if max_len % self.page_size == 0 else "dense"
-        if attn_kernel == "paged" and max_len % self.page_size:
+            attn_kernel = ("paged" if not self.two_call and max_len % self.page_size == 0
+                           else "dense")
+        if attn_kernel == "paged" and (self.two_call or max_len % self.page_size):
             raise ValueError(
-                "attn_kernel='paged' needs max_len divisible by kv_block_size "
-                f"(max_len={max_len}, block={self.page_size})")
+                "attn_kernel='paged' needs packed mode and max_len divisible by "
+                f"kv_block_size (max_len={max_len}, block={self.page_size})")
         self.attn_kernel = attn_kernel
         self.model = model
         self.params = params
@@ -100,8 +107,8 @@ class Engine:
         self.steps_run = 0
         self.prefetch_log: List[float] = []
 
-        self._group = self.cfg.n_heads // self.cfg.n_kv_heads
         if attn_kernel == "paged":
+            self._group = self.cfg.n_heads // self.cfg.n_kv_heads
             # physically paged KV: num_kv_blocks relocatable pages (default:
             # the dense layout's capacity) + 1 scratch page. Backing the
             # allocator with the same bound makes OutOfBlocks a real
@@ -123,8 +130,9 @@ class Engine:
             # that padding segments own; dead entries -> scratch
             self.block_mirror = np.full((self.n_slots + 1, pps), self._scratch_page, np.int32)
         else:
-            # dense slot storage, + 1 scratch row as in JAX (the port packs
-            # only real rows, so nothing writes it)
+            # dense slot storage (KV caches, or two-call SSM states), + 1
+            # scratch row as in JAX (the port computes only real rows, so
+            # nothing writes it)
             self.cache = model.init_cache(self.n_slots + 1, max_len, cache_dtype)
 
         self.sched_cfg = sched_cfg
@@ -192,7 +200,10 @@ class Engine:
         if plan.prefetch is not None:
             self.prefetch_log.append(plan.prefetch.coverage)
         t1 = tr.now() if tr.enabled else 0.0
-        self._run_packed(plan)
+        if self.two_call:
+            self._run_two_call(plan)
+        else:
+            self._run_packed(plan)
         t2 = tr.now() if tr.enabled else 0.0
         self.scheduler.complete_step(plan, now)
         self.scheduler.ledger.record_step(tr, plan.step)
@@ -334,3 +345,45 @@ class Engine:
         logits, self.cache = packed_step(self.model, self.params, self.cache, d_tokens,
                                          d_slots, d_pos, paged)
         return logits[d_rows.long()]
+
+    # -------------------------------------------------------------- two-call
+    def _run_two_call(self, plan: StepPlan) -> None:
+        """JAX's two-call step: one decode call over the decode slots, then
+        one prefill call per segment. JAX decodes every slot row and keeps
+        the old state of rows that are not decoding (``_mask_tree``); rows
+        are independent, so the port decodes only the decoding slots'
+        states, gathered, and writes them back. A prefill runs on views of
+        its slot's state, which it updates in place."""
+        sch = self.scheduler
+        dev = self.device
+        if plan.decode_slots:
+            reqs = [sch.requests[rid] for rid in plan.decode_rids]
+            meta = torch.from_numpy(np.asarray(
+                [list(plan.decode_slots), [r.output[-1] for r in reqs],
+                 [r.next_decode_pos for r in reqs]], np.int64)).to(dev)
+            slots, tokens, index = meta[0], meta[1, :, None].to(torch.int32), meta[2]
+            sub = [{k: v.index_select(0, slots) for k, v in layer.items()}
+                   for layer in self.cache]
+            logits, sub = self.model.decode_step(self.params, tokens, sub, index)
+            for layer, part in zip(self.cache, sub):
+                for k, v in layer.items():
+                    v.index_copy_(0, slots, part[k])
+            for req, tok in zip(reqs, self._sample_rows(logits)):
+                self._append(req, int(tok))
+
+        for seg in plan.prefill_segments:
+            req = sch.requests[seg.rid]
+            sub = [{k: v[seg.slot:seg.slot + 1] for k, v in layer.items()}
+                   for layer in self.cache]
+            if seg.start == 0:
+                # slot reuse / re-prefill after preemption: the states are
+                # additive, so the slot starts from zeros
+                for layer in sub:
+                    for v in layer.values():
+                        v.zero_()
+            chunk = np.asarray(req.prefill_slice(seg.start, seg.length), np.int32)[None]
+            logits, _ = self.model.prefill(self.params,
+                                           {"tokens": torch.from_numpy(chunk).to(dev)}, sub,
+                                           seg.start)
+            if seg.finishes:
+                self._append(req, int(self._sample_rows(logits[:1])[0]))

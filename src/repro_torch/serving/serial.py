@@ -2,9 +2,10 @@
 is measured against ("over the serial execution") and the oracle the packed
 engine is held to token for token.
 
-A request runs alone over its own dense cache: one ``Model.prefill`` of the
-whole prompt from position 0, then one ``Model.decode_step`` per new token,
-greedy (first maximum on a tie, as the engine samples). Every decode step
+A request runs alone over its own cache (a dense KV cache, or Mamba2's
+conv and SSM state): one ``Model.prefill`` of the whole prompt from position
+0, then one ``Model.decode_step`` per new token, greedy (first maximum on a
+tie, as the engine samples). Every decode step
 streams all the weights for a single token; a packed step shares that read
 among its rows.
 """

@@ -22,7 +22,8 @@ PORT = SRC / "repro_torch"
 # docstrings aside) once `repro.` is rewritten to `repro_torch.` and the
 # listed import substitutions are made
 COPIES = [
-    "configs/__init__.py", "configs/base.py", "configs/llama3_1_8b.py", "configs/reduced.py",
+    "configs/__init__.py", "configs/base.py", "configs/llama3_1_8b.py", "configs/mamba2_2_7b.py",
+    "configs/reduced.py",
     "serving/request.py", "serving/metrics.py", "serving/workload.py",
     "memory/__init__.py", "memory/block_allocator.py", "memory/tiers.py",
     "memory/prefix_cache.py", "memory/manager.py", "memory/prefetch_queue.py",
@@ -69,7 +70,8 @@ def _is_jax_or_reference(name: str) -> bool:
 EXPECTED = [
     "repro_torch.kernels.ops", "repro_torch.kernels.decode_attention",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.paged_attention",
-    "repro_torch.kernels.ref", "repro_torch.models.attention", "repro_torch.models.stack",
+    "repro_torch.kernels.ref", "repro_torch.kernels.ssd", "repro_torch.models.attention",
+    "repro_torch.models.mamba", "repro_torch.models.stack",
     "repro_torch.models.model", "repro_torch.serving.serial", "repro_torch.serving.engine",
     "repro_torch.core.packed_step", "repro_torch.weights",
 ]

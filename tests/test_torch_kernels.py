@@ -1,5 +1,5 @@
-"""Plain versions of the port's attention kernels against the JAX package:
-its oracles and its Pallas kernels in interpret mode.
+"""Plain versions of the port's kernels against the JAX package: its oracles
+and its Pallas kernels in interpret mode.
 
 B1 (mixed paged): the random-mix axes of ``test_paged_attention.py``'s
 property test (decode rows, prefill chunks, zero-width segments, padding
@@ -8,6 +8,14 @@ from numpy seeds. B2 (paged), B3 (decode) and B4 (flash): window, softcap,
 lengths of 1 and of the whole cache, NaN in every dead key, through the
 port's ``kernels.ops`` wrappers in the model layouts. fp32 throughout;
 rtol = atol = 2e-5 (the two sides sum in different orders).
+
+B5 (SSD chunk scan): ``ops.ssd`` against JAX's ``ops.ssd`` in interpret mode
+(chunk 64, the port kernel's) and against the sequential ``ssd_ref``, with
+ragged S, with and without h0, two groups, and Mamba2-2.7B's own decay rates
+with dt at 0.1 (where the masked triangle's exponent overflows); and the
+chunked-prefill handoff over fixed seeds. fp32; rtol = atol = 1e-4 against
+the sequential oracle and 2e-5 against the chunked kernel, which sums in the
+same order.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops as t_ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import ssd as t_ssd  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -356,3 +365,124 @@ def test_new_wrappers_check_inputs_and_never_count_cpu_calls():
     fa.flash_attention(q.expand(B, 4, H, d).contiguous(), k[:, :4], v[:, :4])
     assert (da.decode_attention.launches, pa.paged_attention.launches,
             fa.flash_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# B5: SSD chunk scan
+# ---------------------------------------------------------------------------
+
+
+def ssd_inputs(seed, B, S, nh, hd, G, ds, *, h0=True, mamba_decay=False):
+    """numpy inputs of one SSD call. ``mamba_decay``: Mamba2-2.7B's decay
+    rates A = -(1..nh) with dt = 0.1, the top of its init range (the
+    strongest head's log-decay falls by 0.1 nh a token)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, nh, hd)).astype(np.float32)
+    if mamba_decay:
+        A = -np.arange(1, nh + 1, dtype=np.float32)
+        dt = np.full((B, S, nh), 0.1, np.float32)
+    else:
+        A = -np.exp(0.3 * rng.standard_normal(nh)).astype(np.float32)
+        dt = np.log1p(np.exp(rng.standard_normal((B, S, nh)))).astype(np.float32)
+    Bm = (0.5 * rng.standard_normal((B, S, G, ds))).astype(np.float32)
+    Cm = (0.5 * rng.standard_normal((B, S, G, ds))).astype(np.float32)
+    h = rng.standard_normal((B, nh, hd, ds)).astype(np.float32) if h0 else None
+    return x, dt, A, Bm, Cm, h
+
+
+def _port_ssd(x, dt, A, Bm, Cm, h0):
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    y, hT = t_ops.ssd(t(x), t(dt), t(A), t(Bm), t(Cm), t(h0))
+    return y.numpy(), hT.numpy()
+
+
+def _jax(a):
+    return None if a is None else jnp.asarray(a)
+
+
+# (B, S, nh, hd, G, ds, h0): one chunk, ragged, several chunks, two groups
+SSD_CASES = [
+    (1, 64, 4, 16, 1, 16, False),
+    (1, 100, 4, 16, 1, 16, True),
+    (2, 200, 8, 8, 2, 16, True),
+    (2, 77, 16, 8, 1, 16, False),
+    (1, 300, 4, 32, 1, 32, True),
+]
+
+
+@pytest.mark.parametrize("B,S,nh,hd,G,ds,h0", SSD_CASES)
+def test_ssd_plain_matches_pallas_interpret(B, S, nh, hd, G, ds, h0):
+    x, dt, A, Bm, Cm, h = ssd_inputs(B * S + nh, B, S, nh, hd, G, ds, h0=h0)
+    y, hT = _port_ssd(x, dt, A, Bm, Cm, h)
+    jy, jh = ops.ssd(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), h0=_jax(h), chunk=64,
+                     interpret=True)
+    assert y.shape == (B, S, nh, hd) and hT.shape == (B, nh, hd, ds)
+    np.testing.assert_allclose(y, np.asarray(jy), **TOL)
+    np.testing.assert_allclose(hT, np.asarray(jh), **TOL)
+
+
+@pytest.mark.parametrize("mamba_decay", [False, True], ids=["mixed_decay", "overflow"])
+@pytest.mark.parametrize("B,S,nh,hd,G,ds,h0", SSD_CASES[1:4])
+def test_ssd_plain_matches_sequential_ref(B, S, nh, hd, G, ds, h0, mamba_decay):
+    x, dt, A, Bm, Cm, h = ssd_inputs(7 * S, B, S, nh, hd, G, ds, h0=h0, mamba_decay=mamba_decay)
+    y, hT = _port_ssd(x, dt, A, Bm, Cm, h)
+    jy, jh = jax_ref.ssd_ref(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), h0=_jax(h))
+    assert np.isfinite(y).all() and np.isfinite(hT).all()
+    np.testing.assert_allclose(y, np.asarray(jy), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(hT, np.asarray(jh), rtol=1e-4, atol=1e-4)
+    # the port's own sequential oracle is JAX's
+    ty, th = ref.ssd_ref(*(torch.from_numpy(a) for a in (x, dt, A, Bm, Cm)),
+                         None if h is None else torch.from_numpy(h))
+    np.testing.assert_allclose(ty.numpy(), np.asarray(jy), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-5, atol=1e-5)
+
+
+def test_ssd_overflow_regime_stays_finite():
+    """Mamba2-2.7B's 80 decay rates with dt = 0.1: above the diagonal the
+    chunk's decay exponent reaches 0.1 * 80 * 63 = 504, exp of which is inf
+    in fp32; the plain version never forms it."""
+    x, dt, A, Bm, Cm, h = ssd_inputs(11, 1, 130, 80, 4, 1, 8, mamba_decay=True)
+    cum = np.cumsum(dt[0, :64] * A, axis=0)
+    with np.errstate(over="ignore"):
+        assert not np.isfinite(np.exp(np.float32(cum[0] - cum[-1]))).all()
+    y, hT = _port_ssd(x, dt, A, Bm, Cm, h)
+    jy, jh = ops.ssd(*(jnp.asarray(a) for a in (x, dt, A, Bm, Cm)), h0=jnp.asarray(h),
+                     chunk=64, interpret=True)
+    assert np.isfinite(y).all() and np.isfinite(hT).all()
+    np.testing.assert_allclose(y, np.asarray(jy), **TOL)
+    np.testing.assert_allclose(hT, np.asarray(jh), **TOL)
+
+
+@pytest.mark.parametrize("seed,half", [(0, 64), (1, 17), (2, 100), (3, 127)])
+def test_ssd_state_handoff(seed, half):
+    """ssd(x[:half])'s final state fed as h0 to ssd(x[half:]) equals ssd(x):
+    the chunked-prefill handoff (the property of ``test_kernels.py``'s
+    ``test_ssd_state_handoff``, over fixed seeds and split points)."""
+    x, dt, A, Bm, Cm, _ = ssd_inputs(100 + seed, 1, 128, 2, 16, 1, 8, h0=False)
+    y, hT = _port_ssd(x, dt, A, Bm, Cm, None)
+    first = [a[:, :half] for a in (x, dt)] + [A] + [a[:, :half] for a in (Bm, Cm)]
+    rest = [a[:, half:] for a in (x, dt)] + [A] + [a[:, half:] for a in (Bm, Cm)]
+    y1, h1 = _port_ssd(*first, None)
+    y2, h2 = _port_ssd(*rest, h1)
+    np.testing.assert_allclose(y1, y[:, :half], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(y2, y[:, half:], rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h2, hT, rtol=1e-4, atol=1e-4)
+    # and JAX's kernel hands over the same state
+    jy, jh = ops.ssd(*(jnp.asarray(a) for a in first), chunk=32, interpret=True)
+    np.testing.assert_allclose(h1, np.asarray(jh), rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_wrapper_checks_inputs_and_never_counts_cpu_calls():
+    x, dt, A, Bm, Cm, h = (torch.from_numpy(a) for a in ssd_inputs(5, 1, 20, 4, 8, 2, 8))
+    before = t_ssd.ssd_chunk_scan.launches
+    with pytest.raises(ValueError):
+        t_ssd.ssd_chunk_scan(x, dt[:, :3], A, Bm, Cm)  # dt covers 3 of 20 tokens
+    with pytest.raises(ValueError):
+        t_ssd.ssd_chunk_scan(x, dt, A, Bm[:, :, :1], Cm)  # B and C differ
+    with pytest.raises(ValueError):
+        t_ssd.ssd_chunk_scan(x[:, :, :3], dt[:, :, :3], A[:3], Bm, Cm)  # 3 heads, 2 groups
+    with pytest.raises(ValueError):
+        t_ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, h[:, :2])
+    y, hT = t_ssd.ssd_chunk_scan(x, dt, A, Bm, Cm, h)
+    assert y.dtype == x.dtype and hT.dtype == torch.float32
+    assert t_ssd.ssd_chunk_scan.launches == before
