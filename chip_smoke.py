@@ -8,14 +8,18 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
 
   device          card, power limit, torch/CUDA versions; TF32 off for fp32 checks
   build           nvcc builds every kernel of the port from src/repro_torch, one
-                  process per source, all at once
+                  process per source, all at once; ptxas's registers and spills
+                  of every instantiation (none at head_dim 256 may spill)
   kernel_parity   each kernel against its plain PyTorch version on the card, with
                   NaN in every dead key, at the main paths' shapes (Llama3.1-8B
-                  heads: KV 8, G 4, d 128), at kernels_micro's shapes and at the
+                  heads: KV 8, G 4, d 128), at gemma2-2b's (KV 4, G 2, d 256,
+                  window 4096, softcap 50; dropping either from the plain
+                  version must fail), at kernels_micro's shapes and at the
                   reduced test shapes, with times beside the card's bound and one
                   PyTorch library call: B1 mixed_paged_attention, B2
                   paged_attention (pages of 1, 16 and max_len; the dense
-                  engine's decode-only and prefill-bearing steps), B3
+                  engine's decode-only and prefill-bearing steps, the latter's
+                  chunk rows in row tiles), B3
                   decode_attention, B4 flash_attention; B5 ssd_chunk_scan at
                   Mamba2-2.7B's widths (100, 512 and 4096 tokens, the
                   overflow case), two groups and reduced widths, y and the
@@ -96,6 +100,36 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_report(log):
+    """Each kernel instantiation's registers, spills and stack frame from
+    nvcc's ``-Xptxas=-v`` output, with its head dim where the mangled name
+    carries one (template arguments 16..256)."""
+    import re
+
+    funcs, current = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = dict(function=m.group(1))
+            dims = [int(x) for x in re.findall(r"Li(\d+)E", m.group(1))
+                    if int(x) in (16, 32, 64, 128, 256)]
+            current["head_dim"] = dims[0] if dims else None
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            funcs.append(current)
+            current = None
+    return funcs
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -109,13 +143,14 @@ def nvidia_smi() -> str:
 
 
 def make_case(torch, seed, segs, *, kv, g, d, page, dtype, window=None, softcap=None,
-              pad_rows=7):
+              pad_rows=7, q_scale=1.0):
     """A packed step's attention inputs on the card: ``segs`` (q_len, kv_len)
     segments plus zero-width padding segments up to a power of two (as the
     engine pads), ``pad_rows`` padding rows, pages shuffled over the pool, and
     every dead slot — unused pages, the scratch page, the unwritten tail of
     each last live page — filled with NaN. Metadata from a numpy seed, values
-    drawn on the card from the same seed. The q-tile list is built once, as
+    drawn on the card from the same seed, queries scaled by ``q_scale`` (so
+    that scores reach a softcap of 50). The q-tile list is built once, as
     the engine builds it once per step."""
     import numpy as np
 
@@ -149,7 +184,7 @@ def make_case(torch, seed, segs, *, kv, g, d, page, dtype, window=None, softcap=
     shape = (P + 1, page, kv, d)
     k_pages = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
     v_pages = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-    q = torch.randn((n_real + pad_rows, kv, g, d), generator=gen, device=dev)
+    q = q_scale * torch.randn((n_real + pad_rows, kv, g, d), generator=gen, device=dev)
     dead = torch.ones(P + 1, dtype=torch.bool)
     dead[torch.from_numpy(ids[:off]).long()] = False
     k_pages[dead.to(dev)] = float("nan")
@@ -219,7 +254,8 @@ def device_ms(torch, fn, reps, warmup=2):
     it excludes the host's time to enqueue the call, which for a kernel of
     tens of microseconds is most of a lone call's span. Falls back to
     ``time_ms`` (and says so) if the trace shows no device time. Returns
-    (ms, how, {kernel name: ms per call})."""
+    (ms, how, {kernel name: ms per call}, {kernel name: launches the trace
+    recorded, against ``reps`` calls})."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(32 * 2**20, dtype=torch.int32, device="cuda")
@@ -231,23 +267,29 @@ def device_ms(torch, fn, reps, warmup=2):
             flush.bitwise_not_()
             fn()
         torch.cuda.synchronize()
-    parts = {e.key[:60]: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "bitwise_not" not in e.key.lower() and e.self_device_time_total > 0}
+    # each kernel's mean time per launch, times its launches per call: a
+    # trace that lost some records (CUPTI's buffers can drop them) still
+    # gives each kernel's time, where dividing its total by ``reps`` would
+    # undercount it
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
+              and "bitwise_not" not in e.key.lower() and e.self_device_time_total > 0]
+    parts = {e.key[:60]: e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / reps))
+             for e in events}
     if not parts:
-        return time_ms(torch, fn, reps, warmup), "events", {}
-    return sum(parts.values()), "profiler", parts
+        return time_ms(torch, fn, reps, warmup), "events", {}, {}
+    return sum(parts.values()), "profiler", parts, {e.key[:60]: e.count for e in events}
 
 
 def timings(torch, kernel, plain, library, reps):
     """Device times of the kernel, its plain version and the library call
     (None where no one PyTorch call computes the function), and the kernel's
     event-timed span (host enqueue included)."""
-    k_ms, how, parts = device_ms(torch, kernel, reps)
+    k_ms, how, parts, records = device_ms(torch, kernel, reps)
     p_ms = device_ms(torch, plain, 2, warmup=1)[0]
     l_ms = device_ms(torch, library, reps)[0] if library is not None else None
     return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, timing=how,
-                kernel_parts=parts, kernel_event_ms=time_ms(torch, kernel, reps))
+                kernel_parts=parts, kernel_records=records, timed_calls=reps,
+                kernel_event_ms=time_ms(torch, kernel, reps))
 
 
 def library_call(torch, case):
@@ -379,6 +421,9 @@ def kernel_parity(torch):
     decode16 = [(1, int(c)) for c in np.linspace(1024, 32768, 16)]
     mixed = [(1, int(c)) for c in np.linspace(1024, 4096, 8)] + [(512, 4096 + 512)]
     small = [(1, 37), (1, 300), (64, 64 + 700), (17, 17), (1, 1)]
+    gemma = dict(kv=4, g=2, d=256, page=16)
+    local = dict(window=4096, softcap=50.0, q_scale=64.0)
+    gemma_mixed = [(1, int(c)) for c in np.linspace(1000, 8192, 6)] + [(300, 7000), (200, 3000)]
     cases = [
         ("decode16_bf16", 1, decode16, dict(llama, dtype=bf16)),
         ("mixed_bf16", 2, mixed, dict(llama, dtype=bf16)),
@@ -396,6 +441,14 @@ def kernel_parity(torch):
                                               window=16, softcap=3.0)),
         ("d32_g8_fp32", 11, small, dict(kv=1, g=8, d=32, page=8, dtype=f32)),
         ("d64_g1_bf16", 12, small, dict(kv=4, g=1, d=64, page=8, dtype=bf16)),
+        # gemma2-2b's attention (KV 4, G 2, d 256, window 4096 on its local
+        # layers, softcap 50): decode rows and two chunks at lengths up to
+        # 8192, so the window bites; queries scaled by 64 so that scores
+        # reach several times the cap
+        ("gemma2_mixed_bf16", 13, gemma_mixed, dict(gemma, dtype=bf16, **local)),
+        ("gemma2_mixed_fp32", 14, gemma_mixed, dict(gemma, dtype=f32, **local)),
+        ("gemma2_global_bf16", 15, gemma_mixed, dict(gemma, dtype=bf16, softcap=50.0,
+                                                      q_scale=64.0)),
     ]
     recs = {}
     for name, seed, segs, kw in cases:
@@ -417,57 +470,72 @@ def _live_range(length, window):
 
 
 def row_case(torch, seed, lengths, *, kv, g, d, dtype, cap, page=None, window=None,
-             softcap=None):
+             softcap=None, q_scale=1.0, nan_left_of_window=True):
     """One query per row. ``page=None``: B3's dense caches (N, cap, KV, d).
     Else B2's pool of ``cap // page`` pages per row, shuffled, plus a scratch
     page that every dead table entry names (``page == cap`` is the dense
     engine's layout: each row's cache one page). Every dead key — past a
-    row's length, left of its window, in unused pages — holds NaN. Values
-    drawn on the card from the seed; tables from a numpy seed."""
+    row's length, in unused pages, and left of its window unless
+    ``nan_left_of_window`` is False (the earlier tokens a serving cache
+    holds there, which a kernel that ignored the window would read) —
+    holds NaN. Values
+    drawn on the card from the seed (queries scaled by ``q_scale``); tables
+    from a numpy seed, and B2's row tiles from them (``row_tiles``)."""
     import numpy as np
+
+    from repro_torch.kernels.paged_attention import row_tiles
 
     rng = np.random.default_rng(seed)
     N = len(lengths)
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    live = np.zeros((N, cap), bool)
+    live = np.zeros((N, cap), bool)  # the keys each row reads
+    held = np.zeros((N, cap), bool)  # the keys that hold values
     for n, L in enumerate(lengths):
         lo, hi = _live_range(L, window)
         live[n, lo:hi] = True
-    q = torch.randn((N, kv, g, d), generator=gen, device="cuda")
+        held[n, lo if nan_left_of_window else 0:hi] = True
+    q = q_scale * torch.randn((N, kv, g, d), generator=gen, device="cuda")
     lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    tiles = None
     if page is None:
         k = torch.randn((N, cap, kv, d), generator=gen, device="cuda")
         v = torch.randn((N, cap, kv, d), generator=gen, device="cuda")
-        dead = torch.from_numpy(~live).cuda()
+        dead = torch.from_numpy(~held).cuda()
         k[dead], v[dead] = float("nan"), float("nan")
         tables = None
     else:
         nb = cap // page
         P = N * nb + 1  # the last page is the scratch page
         tables = rng.permutation(N * nb).astype(np.int32).reshape(N, nb)
-        used = live.reshape(N, nb, page).any(-1)
+        used = held.reshape(N, nb, page).any(-1)
         tables[~used] = P - 1
         pool_live = np.zeros((P, page), bool)
-        pool_live[tables[used]] = live.reshape(N, nb, page)[used]
+        pool_live[tables[used]] = held.reshape(N, nb, page)[used]
         k = torch.randn((P, page, kv, d), generator=gen, device="cuda")
         v = torch.randn((P, page, kv, d), generator=gen, device="cuda")
         dead = torch.from_numpy(~pool_live).cuda()
         k[dead], v[dead] = float("nan"), float("nan")
+        tiles = torch.from_numpy(row_tiles(tables, np.asarray(lengths), g)).cuda()
         tables = torch.from_numpy(tables).cuda()
     return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), lens=lens, tables=tables,
-                lengths=list(lengths), live=live, window=window, softcap=softcap, page=page,
-                cap=cap)
+                tiles=tiles, lengths=list(lengths), live=live, window=window, softcap=softcap,
+                page=page, cap=cap)
 
 
-def dense_step_case(torch, seed, segs, *, kv, g, d, dtype, cap):
+def dense_step_case(torch, seed, segs, *, kv, g, d, dtype, cap, window=None, softcap=None,
+                    q_scale=1.0):
     """A dense-engine step's B2 inputs: segment s, (q_len, kv_len), owns
     slot s of a (len(segs) + 1, cap, KV, d) slot cache (the last slot is the
     scratch slot) and gives q_len rows, row j at position kv_len - q_len + j,
-    each reading its slot as one page of ``cap`` tokens (table [[s]]).
-    Every key past a slot's kv_len, and the whole scratch slot, holds NaN.
-    Carries the rows (for B2 and its plain version) and the segments (for
-    the bound and the library call)."""
+    each reading its slot as one page of ``cap`` tokens (table [[s]]), in
+    the row tiles the engine builds (``row_tiles``: a chunk's rows share
+    tiles). Every key past a slot's kv_len, and the whole scratch slot,
+    holds NaN; keys left of a row's window are the slot's own (live for its
+    later rows). Carries the rows (for B2 and its plain version) and the
+    segments (for the bound and the library call)."""
     import numpy as np
+
+    from repro_torch.kernels.paged_attention import row_tiles
 
     n_seg = len(segs)
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -478,15 +546,19 @@ def dense_step_case(torch, seed, segs, *, kv, g, d, dtype, cap):
     k[n_seg], v[n_seg] = float("nan"), float("nan")
     slots = np.array([s for s, (ql, _) in enumerate(segs) for _ in range(ql)], np.int32)
     lengths = [kvl - ql + j + 1 for ql, kvl in segs for j in range(ql)]
-    q = torch.randn((len(lengths), kv, g, d), generator=gen, device="cuda")
+    q = q_scale * torch.randn((len(lengths), kv, g, d), generator=gen, device="cuda")
     cu = np.zeros(n_seg + 1, np.int32)
     cu[1:] = np.cumsum([ql for ql, _ in segs])
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa: E731
-    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype),
-                lens=t(np.asarray(lengths, np.int32)), tables=t(slots[:, None]),
-                lengths=lengths, live=np.arange(cap)[None, :] < np.asarray(lengths)[:, None],
-                window=None, softcap=None, page=cap, cap=cap, segs=segs, cu=t(cu),
-                seg_tables=t(np.arange(n_seg, dtype=np.int32)[:, None]), n_real=len(lengths))
+    lens = np.asarray(lengths, np.int32)
+    live = np.arange(cap)[None, :] < lens[:, None]
+    if window is not None:
+        live &= np.arange(cap)[None, :] >= lens[:, None] - window
+    return dict(q=q.to(dtype), k=k.to(dtype), v=v.to(dtype), lens=t(lens),
+                tables=t(slots[:, None]), tiles=t(row_tiles(slots[:, None], lens, g)),
+                lengths=lengths, live=live, window=window, softcap=softcap, page=cap, cap=cap,
+                segs=segs, cu=t(cu), seg_tables=t(np.arange(n_seg, dtype=np.int32)[:, None]),
+                n_real=len(lengths))
 
 
 def paged_ref_rows(q, k_pages, v_pages, lengths, tables, rows=32, **kw):
@@ -562,7 +634,8 @@ def run_row_case(torch, name, case):
             q.float(), k.float(), v.float(), lens, **kw)
     else:
         kernel_name = "paged_attention"
-        call = lambda **kw: paged_attention(q, k, v, lens, tabs, **kw)  # noqa: E731
+        call = lambda **kw: paged_attention(q, k, v, lens, tabs, tiles=case["tiles"],  # noqa: E731
+                                            **kw)
         plain = lambda k, v, **kw: paged_ref_rows(  # noqa: E731
             q.float(), k.float(), v.float(), lens, tabs, **kw)
     got = call(window=w, softcap=cap)
@@ -576,11 +649,14 @@ def run_row_case(torch, name, case):
     if w is not None:
         faults["no_window"] = plain(k0, v0, softcap=cap)
     N, KV, G, d = q.shape
+    n_tiles = None if tabs is None else case["tiles"].shape[0]
+    tiled = n_tiles is not None and n_tiles < N and q.dtype == torch.bfloat16
     rec = parity_record(torch, name, kernel_name, dtype, got, expect, faults,
                         dict(rows=N, kv=KV, g=G, d=d, cap=case["cap"], page=case["page"],
                              len_min=min(case["lengths"]), len_max=max(case["lengths"]),
-                             window=w, softcap=cap,
-                             n_split=split_count(N * KV, case["cap"] if tabs is None
+                             window=w, softcap=cap, row_tiles=n_tiles, tensor_core_tiles=tiled,
+                             n_split=split_count((n_tiles if tiled else N) * KV,
+                                                 case["cap"] if tabs is None
                                                  else tabs.shape[1] * case["page"])))
     if "segs" in case:  # a dense-engine step: segments share their slot's keys
         nbytes, flops = work(case)
@@ -605,13 +681,14 @@ def run_row_case(torch, name, case):
 # ---------------------------------------------------------------------------
 
 
-def flash_case(torch, seed, B, S, *, kv, g, d, dtype, window=None, softcap=None, cache=None):
+def flash_case(torch, seed, B, S, *, kv, g, d, dtype, window=None, softcap=None, cache=None,
+               q_scale=1.0):
     """Prompts of S tokens over themselves. K/V are the first S rows of a
     (B, cache, KV, d) cache whose other rows hold NaN, read through the view's
-    strides as the serial prefill reads them."""
+    strides as the serial prefill reads them; queries scaled by ``q_scale``."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cache = cache or S
-    q = torch.randn((B, S, kv * g, d), generator=gen, device="cuda")
+    q = q_scale * torch.randn((B, S, kv * g, d), generator=gen, device="cuda")
     kc = torch.full((B, cache, kv, d), float("nan"), device="cuda")
     vc = kc.clone()
     kc[:, :S] = torch.randn((B, S, kv, d), generator=gen, device="cuda")
@@ -704,6 +781,12 @@ def single_query_and_flash_parity(torch):
     spread = [int(x) for x in np.linspace(512, 8192, 8)]
     micro_lens = [int(x) for x in np.linspace(64, 2048, 32)]  # kernels_micro's lengths
     small = [1, 37, 300, 1024]
+    gemma = dict(kv=4, g=2, d=256)
+    # queries scaled by 64: scores reach several times the cap; the keys
+    # left of a row's window hold values, so that a kernel that ignored the
+    # window would read them
+    local = dict(window=4096, softcap=50.0, q_scale=64.0)
+    held = dict(local, nan_left_of_window=False)
     recs = {}
     rows = [
         # B3: one query per row over a dense cache
@@ -730,6 +813,14 @@ def single_query_and_flash_parity(torch):
         ("b2_micro_fp32", micro_lens, dict(micro, dtype=f32, cap=8192, page=128)),
         ("b2_reduced_d16_fp32", [1, 5, 64], dict(kv=2, g=2, d=16, dtype=f32, cap=64,
                                                  page=64)),
+        # gemma2-2b's attention: KV 4, G 2, d 256, window 4096, softcap 50
+        ("b3_gemma2_serial_bf16", [6000], dict(gemma, dtype=bf16, cap=8192, **held)),
+        ("b3_gemma2_batch_bf16", spread, dict(gemma, dtype=bf16, cap=8192, **held)),
+        ("b3_gemma2_batch_fp32", spread, dict(gemma, dtype=f32, cap=8192, **held)),
+        ("b2_gemma2_dense_engine_bf16", [600 + 1080 * i for i in range(8)],
+         dict(gemma, dtype=bf16, cap=8192, page=8192, **held)),
+        ("b2_gemma2_page16_bf16", spread, dict(gemma, dtype=bf16, cap=8192, page=16, **held)),
+        ("b2_gemma2_page16_fp32", spread, dict(gemma, dtype=f32, cap=8192, page=16, **held)),
     ]
     for i, (name, lengths, kw) in enumerate(rows):
         case = row_case(torch, 100 + i, lengths, **kw)
@@ -739,12 +830,18 @@ def single_query_and_flash_parity(torch):
     # B2 on a prefill-bearing step of the dense engine, over a 9 x 8192 slot
     # cache: the step's 512-token budget holds 6 decode rows, the last 235
     # tokens of a 2795-token prompt and the first 271 of the next; 512 rows,
-    # so B2 runs unsplit
+    # the chunks' rows in tiles of 16 (bf16). At gemma2's shapes the same
+    # step at lengths up to 8192, with window 4096 and softcap 50.
     dense_step = [(1, n) for n in (600, 1100, 1650, 2300, 2900, 3590)] + [(235, 2795),
                                                                           (271, 271)]
-    for i, (name, dtype) in enumerate((("b2_dense_prefill_bf16", bf16),
-                                       ("b2_dense_prefill_fp32", f32))):
-        case = dense_step_case(torch, 150 + i, dense_step, **llama, dtype=dtype, cap=8192)
+    gemma_step = [(1, n) for n in (1500, 3000, 4500, 6000, 7000, 8000)] + [(235, 5795),
+                                                                           (271, 4400)]
+    steps = [("b2_dense_prefill_bf16", dense_step, dict(llama, dtype=bf16)),
+             ("b2_dense_prefill_fp32", dense_step, dict(llama, dtype=f32)),
+             ("b2_gemma2_dense_prefill_bf16", gemma_step, dict(gemma, dtype=bf16, **local)),
+             ("b2_gemma2_dense_prefill_fp32", gemma_step, dict(gemma, dtype=f32, **local))]
+    for i, (name, segs, kw) in enumerate(steps):
+        case = dense_step_case(torch, 150 + i, segs, **kw, cap=8192)
         recs[name] = run_row_case(torch, name, case)
         del case
         torch.cuda.empty_cache()
@@ -758,6 +855,16 @@ def single_query_and_flash_parity(torch):
         ("b4_micro_fp32", 1, 1024, dict(micro, dtype=f32)),  # kernels_micro.py:47
         ("b4_reduced_d16_fp32", 2, 30, dict(kv=2, g=2, d=16, dtype=f32, cache=64)),
         ("b4_g8_d64_bf16", 1, 777, dict(kv=2, g=8, d=64, dtype=bf16)),
+        ("b4_reduced_d16_bf16", 2, 100, dict(kv=2, g=2, d=16, dtype=bf16, cache=128, window=16,
+                                              softcap=3.0)),
+        # gemma2-2b's attention: a local layer's 6000-token prompt read from
+        # an 8192 cache, and a global layer's two 1000-token prompts
+        ("b4_gemma2_prompt6000_bf16", 1, 6000, dict(gemma, dtype=bf16, cache=8192, **local)),
+        ("b4_gemma2_prompt6000_fp32", 1, 6000, dict(gemma, dtype=f32, cache=8192, **local)),
+        ("b4_gemma2_prompt1000_bf16", 2, 1000, dict(gemma, dtype=bf16, softcap=50.0,
+                                                     q_scale=64.0)),
+        ("b4_gemma2_prompt1000_fp32", 2, 1000, dict(gemma, dtype=f32, softcap=50.0,
+                                                     q_scale=64.0)),
     ]
     for i, (name, B, S, kw) in enumerate(flashes):
         case = flash_case(torch, 200 + i, B, S, **kw)
@@ -1122,11 +1229,12 @@ def serve_engine(torch, model, params, attn_kernel):
 def dense_engine_check(torch, model, params):
     """SERVE's workload through the dense engine at full width, checked
     before ``serve_dense`` times it: every layer's B2 call of the first step
-    that carries prefill chunks beside decode rows with enough rows that B2
-    runs unsplit, and of the first decode-only step (a few rows, split over
-    keys and combined), is also computed by the plain version in fp32 from
-    the same bf16 tensors (the slot cache, lengths and tables) and held to
-    the bf16 row tolerance. Stops once both steps are checked."""
+    that carries prefill chunks beside decode rows (the chunks' rows in
+    multi-row tiles on the tensor cores, unsplit), and of the first
+    decode-only step (one-row tiles: a few rows, split over keys and
+    combined), is also computed by the plain version in fp32 from the same
+    bf16 tensors (the slot cache, lengths and tables) and held to the bf16
+    row tolerance. Stops once both steps are checked."""
     import repro_torch.core.packed_step as packed
     from repro_torch.kernels.decode_attention import split_count
     from repro_torch.kernels.paged_attention import paged_attention
@@ -1136,21 +1244,23 @@ def dense_engine_check(torch, model, params):
     steps = {"prefill": [], "decode": []}  # each checked call's record
     state = dict(calls=0, kind=None)
 
-    def checked(q, k_cache, v_cache, lengths, tables, **kw):
-        out = paged_attention(q, k_cache, v_cache, lengths, tables, **kw)
+    def checked(q, k_cache, v_cache, lengths, tables, *, tiles, **kw):
+        out = paged_attention(q, k_cache, v_cache, lengths, tables, tiles=tiles, **kw)
         N, KV = q.shape[:2]
-        n_split = split_count(N * KV, k_cache.shape[1])
+        n_tiles = tiles.shape[0]
+        n_split = split_count((n_tiles if n_tiles < N else N) * KV, k_cache.shape[1])
         if state["calls"] % L == 0:  # a step's first layer: is it one to check?
             per_slot = torch.unique(tables[:, 0], return_counts=True)[1]
             kind = ("decode" if int(per_slot.max()) == 1 else
-                    "prefill" if int(per_slot.min()) == 1 and n_split == 1 else None)
+                    "prefill" if int(per_slot.min()) == 1 else None)
             state["kind"] = kind if kind and not steps[kind] else None
         state["calls"] += 1
         if state["kind"]:
             plain = paged_ref_rows(q.float(), k_cache.float(), v_cache.float(), lengths, tables,
                                    **kw)
             steps[state["kind"]].append(dict(
-                rows=N, n_split=n_split, tol_used=tol_used(out.float(), plain, "bfloat16")))
+                rows=N, n_tiles=n_tiles, n_split=n_split,
+                tol_used=tol_used(out.float(), plain, "bfloat16")))
         return out
 
     packed.paged_attention = checked
@@ -1160,12 +1270,14 @@ def dense_engine_check(torch, model, params):
     finally:
         packed.paged_attention = paged_attention
     rec = dict(phase="serve_dense_check", steps_run=eng.steps_run,
-               **{kind: dict(calls_checked=len(v), rows=v[0]["rows"] if v else None,
-                             n_split=v[0]["n_split"] if v else None,
+               **{kind: dict(calls_checked=len(v), **{key: v[0][key] if v else None
+                                                      for key in ("rows", "n_tiles", "n_split")},
                              tol_used_max=max((c["tol_used"] for c in v), default=None))
                   for kind, v in steps.items()})
     rec["ok"] = (all(len(v) == L and max(c["tol_used"] for c in v) <= 1
-                     for v in steps.values()) and rec["decode"]["n_split"] > 1)
+                     for v in steps.values()) and rec["decode"]["n_split"] > 1
+                 and rec["decode"]["n_tiles"] == rec["decode"]["rows"]
+                 and rec["prefill"]["n_tiles"] < rec["prefill"]["rows"])
     emit(rec)
     del eng
     torch.cuda.empty_cache()
@@ -1629,9 +1741,13 @@ def micro(torch, parity):
     row_tab = t(np.concatenate([tables[:Bd]] + [np.repeat(tables[Bd + s][None], chunk, 0)
                                                   for s in range(C)]))
     d_len = t(np.asarray(row_len, np.int32))
+    # the per-token expansion as kernels_micro prices it: every row reads its
+    # own prefix, a tile of one row each (fp32 runs that way in any case)
+    one_row = t(np.stack([np.arange(N), np.ones(N)], axis=1).astype(np.int32))
     unified = lambda: mixed_paged_attention(q, pool_k, pool_v, d_cu, d_kv, d_tab,  # noqa: E731
                                             tiles=d_tiles)
-    per_token = lambda: paged_attention(q, pool_k, pool_v, d_len, row_tab)  # noqa: E731
+    per_token = lambda: paged_attention(q, pool_k, pool_v, d_len, row_tab,  # noqa: E731
+                                        tiles=one_row)
     plain = paged_attention_ref(q, pool_k, pool_v, d_len, row_tab)
     err = dict(unified=tol_used(unified(), mixed_attention_ref(q, pool_k, pool_v, d_cu, d_kv,
                                                                 d_tab), "float32"),
@@ -1674,11 +1790,21 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build_all(sorted({Path(src).stem for src, _ in KERNELS.values()}))
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              kernels={b.name: dict(path=str(b.path.relative_to(ROOT)), nvcc_s=b.seconds,
-                                    ptxas=[ln.strip() for ln in b.log.splitlines()
-                                           if "registers" in ln or "spill" in ln])
-                       for b in built}))
+    ptxas = {b.name: ptxas_report(b.log) for b in built}
+    spills = [f for fs in ptxas.values() for f in fs
+              if f.get("spill_stores", 0) or f.get("spill_loads", 0)]
+    rec = dict(phase="build", seconds=time.perf_counter() - t0,
+               kernels={b.name: dict(path=str(b.path.relative_to(ROOT)), nvcc_s=b.seconds,
+                                     ptxas=ptxas[b.name]) for b in built},
+               instantiations=sum(len(fs) for fs in ptxas.values()),
+               spilling=[f["function"] for f in spills],
+               d256_spilling=[f["function"] for f in spills if f["head_dim"] == 256])
+    # every head-dim-256 instantiation must keep its registers (a rebuilt
+    # library reports nothing: build_all skips a source that is up to date)
+    rec["ok"] = not rec["d256_spilling"]
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"build: instantiations at head_dim 256 spill: {rec}")
 
     parity = kernel_parity(torch)
     parity.update(single_query_and_flash_parity(torch))
@@ -1704,10 +1830,13 @@ def main() -> int:
     # each kernel: its launches on the main path that runs it, timed at that
     # path's shapes (the first one heads the line); plain-version calls on
     # the card summed over those paths
-    paths = {"mixed_paged_attention": (served, ["mixed_bf16"]),
-             "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16"]),
-             "decode_attention": (serial_rec, ["b3_serial_bf16"]),
-             "flash_attention": (serial_rec, ["b4_prompt4096_bf16"]),
+    paths = {"mixed_paged_attention": (served, ["mixed_bf16", "gemma2_mixed_bf16"]),
+             "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16",
+                                                "b2_gemma2_dense_engine_bf16",
+                                                "b2_gemma2_dense_prefill_bf16"]),
+             "decode_attention": (serial_rec, ["b3_serial_bf16", "b3_gemma2_serial_bf16"]),
+             "flash_attention": (serial_rec, ["b4_prompt4096_bf16", "b4_prompt1000_bf16",
+                                              "b4_gemma2_prompt6000_bf16"]),
              "ssd_chunk_scan": (served_mamba, ["b5_s512_bf16", "b5_s100_bf16"])}
     lines = []
     for kname, (source, replaces) in KERNELS.items():

@@ -16,8 +16,10 @@ rows. Two realizations, one view class each:
     KV, d)`` slot cache, written at (slot, position); ONE one-query-per-row
     call (``kernels.paged_attention.paged_attention``, B2) with each slot's
     row as one page of ``max_len`` tokens (table ``slots[:, None]``,
-    ``lengths = positions + 1``). Keys past a row's position may hold an
-    earlier request's tokens; the kernel never reads them.
+    ``lengths = positions + 1``), the rows of a prefill chunk sharing tiles
+    (``row_tiles``) so that the kernel reads their slot's keys once per
+    tile. Keys past a row's position may hold an earlier request's tokens;
+    the kernel never reads them.
 
 Where JAX rebuilt the cache (``.at[...].set``), the port writes it in place
 (``index_put_``): ``packed_step`` mutates the cache it is given and returns
@@ -26,7 +28,7 @@ that same list. A Python loop over layers replaces ``lax.scan``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -94,10 +96,13 @@ class PagedView:
 @dataclasses.dataclass
 class DenseView:
     """One packed step's dense-cache attention metadata, built once per
-    step and shared by every layer: the rows' slots and positions."""
+    step and shared by every layer: the rows' slots and positions, and
+    B2's row tiles (``row_tiles(slots[:, None], positions + 1, G)``),
+    required on the card."""
 
     slots: torch.Tensor  # (N,) int32
     positions: torch.Tensor  # (N,) int32
+    tiles: Optional[torch.Tensor] = None  # (n_tiles, 2) int32, see row_tiles
 
     def __post_init__(self):
         self._lengths = (self.positions + 1).to(torch.int32)
@@ -114,7 +119,7 @@ class DenseView:
         """q (N, KV, G, d), one query per row, over its slot's cache row: one
         call (B2), each row a page of ``max_len`` tokens."""
         return paged_attention(q, k_cache, v_cache, self._lengths, self._tables, window=window,
-                               softcap=softcap)
+                               softcap=softcap, tiles=self.tiles)
 
 
 def _packed_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, write_index):
@@ -154,19 +159,21 @@ def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, 
 
 @torch.inference_mode()
 def packed_step(model: Model, params, cache, tokens, slots, positions,
-                paged: Optional[PagedView] = None):
+                view: Optional[Union[PagedView, DenseView]] = None):
     """tokens/slots/positions: (N,) -> (logits (N, vocab) fp32, cache).
 
-    With ``paged`` the cache is the per-layer page pool list
+    With a ``PagedView`` the cache is the per-layer page pool list
     (``Model.init_page_pool``); padding rows point at the scratch slot, whose
     table names only the scratch page, and their outputs are ignored by the
-    caller. Without it the cache is the dense slot cache
-    (``Model.init_cache(n_slots + 1, max_len)``). Either is updated in place
-    and returned."""
+    caller. With a ``DenseView`` (or none: ``DenseView(slots, positions)``,
+    without row tiles, which only the CPU takes) the cache is the dense slot
+    cache (``Model.init_cache(n_slots + 1, max_len)``). Either is updated in
+    place and returned."""
     cfg = model.cfg
     if not supports_packed(cfg):
         raise NotImplementedError(f"{cfg.name}: not a packed (attention-only) arch")
-    view = paged if paged is not None else DenseView(slots, positions)
+    if view is None:
+        view = DenseView(slots, positions)
     x = model._embed(params, tokens)
     # what every layer shares is computed once: the K/V write targets and
     # the RoPE angles of the step's positions

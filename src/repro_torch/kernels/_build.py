@@ -5,7 +5,11 @@ interface (no PyTorch headers, so a build takes seconds, not minutes); the
 ``csrc/*.cuh`` headers are shared by the sources:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
+         -Xcompiler -fPIC -Xptxas=-v -lcuda \
+         -o build/repro_torch_kernels/<name>-<hash>.so <name>.cu
+
+(``-lcuda`` links libcuda for ``cuTensorMapEncodeTiled``, with which B4's
+launcher builds its TMA descriptors.)
 
 The build happens on first use, into ``build/repro_torch_kernels/`` at the
 repository root, keyed by a hash of the source, the headers and the flags,
@@ -28,7 +32,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lcuda")
 
 
 @dataclasses.dataclass

@@ -25,7 +25,21 @@
 // small pass, one CTA per (row, KV head, query head), combines the splits'
 // (m, l, acc). The products run in fp32 on the CUDA cores for both input
 // types (bf16 is widened on load): at G <= 16 queries per key there is
-// nothing for the tensor cores to amortise.
+// nothing for the tensor cores to amortise. d <= 128 runs 128 threads a CTA;
+// d = 256 runs 256 (one output column each), with one K/V stage instead of
+// two in fp32 so that the CTA fits in 227 KB.
+//
+// B2's rows can share keys: in the engine's dense fallback a prefill chunk
+// is many rows of one slot at consecutive positions, and one CTA per row
+// would stream the slot's prefix once per row, doing only 4 G d operations
+// per key. So B2 takes a tile list built on the host (row_tiles: runs of
+// rows with one table and consecutive lengths, up to 64 query vectors), and
+// when any tile holds several rows (bf16) it runs tile_attention_kernel: one
+// CTA per (tile, KV head, split) stages each key block once for all of the
+// tile's rows and runs both products on the tensor cores (B1's warp tile,
+// attn::MmaRows). What bounds it then is still bytes, now read once per tile
+// rather than per row. A call whose tiles are all one row (decode rows of
+// distinct slots, pages of 16) keeps the per-row design above.
 //
 // The split is sized on the host from the row count and the cache's
 // capacity, and each CTA takes its share of its own row's live keys, so a
@@ -45,7 +59,7 @@ namespace {
 
 using namespace attn;
 
-constexpr int NT = 128;    // threads per CTA
+constexpr int NT = 128;    // threads per CTA (d <= 128) and of the combine pass
 constexpr int BK = 64;     // keys per block
 constexpr int G_MAX = 16;  // query heads per KV head
 constexpr int MAX_SPLIT = 512;  // CTAs per (row, KV head)
@@ -69,6 +83,27 @@ struct PagedKeys {
   }
 };
 
+// d = 256 takes 256 threads (one output column each in the value product)
+template <int D>
+__host__ __device__ constexpr int row_threads() {
+  return D > 128 ? 256 : NT;
+}
+
+// CTAs an SM must hold, for ptxas's register budget: d <= 128 keeps the
+// occupancy its kernels reach (at most 73 registers a thread); d = 256 may
+// take up to 255 registers rather than spill
+template <int D>
+__host__ __device__ constexpr int row_min_ctas() {
+  return D > 128 ? 1 : 7;
+}
+
+// K/V stages in flight: two, but one for fp32 at d = 256, whose two stages
+// (266,240 B) would not fit the 232,448 B a CTA may have
+template <typename T, int D>
+__host__ __device__ constexpr int row_stages() {
+  return sizeof(T) == 4 && D > 128 ? 1 : 2;
+}
+
 template <typename T, int D>
 __host__ __device__ constexpr int kv_stride() {
   return D + 16 / int(sizeof(T));  // staged K/V row (elements): 16 bytes of padding
@@ -76,16 +111,18 @@ __host__ __device__ constexpr int kv_stride() {
 
 template <typename T, int D>
 constexpr size_t row_smem_bytes() {
-  return sizeof(T) * 4 * BK * kv_stride<T, D>()  // 2 stages x (K, V)
+  return sizeof(T) * row_stages<T, D>() * 2 * BK * kv_stride<T, D>()  // stages x (K, V)
          + sizeof(float) * (G_MAX * D + G_MAX * BK + 3 * G_MAX);
 }
 
 template <typename T, int D, typename Keys>
-__global__ void __launch_bounds__(NT) row_attention_kernel(
+__global__ void __launch_bounds__(row_threads<D>(), row_min_ctas<D>()) row_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ o_part, float* __restrict__ ml_part,
     const int* __restrict__ lengths, Keys keys, int n_kv, int g, int n_split, float scale,
     float softcap, int window) {
+  constexpr int NT = row_threads<D>();
+  constexpr int STAGES = row_stages<T, D>();
   constexpr int KS = kv_stride<T, D>();
   constexpr int VEC = 16 / int(sizeof(T));  // elements per 16-byte copy
   constexpr int SRG = NT / BK;              // row groups in the score product
@@ -95,8 +132,8 @@ __global__ void __launch_bounds__(NT) row_attention_kernel(
   static_assert(NT % D == 0 && D % VEC == 0 && NT % BK == 0 && BK == 64, "tile shape");
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kv_s = reinterpret_cast<T*>(smem_raw);                  // [stage][K, V][BK][KS]
-  float* qs = reinterpret_cast<float*>(kv_s + 4 * BK * KS);  // [G][D]
+  T* kv_s = reinterpret_cast<T*>(smem_raw);  // [stage][K, V][BK][KS]
+  float* qs = reinterpret_cast<float*>(kv_s + STAGES * 2 * BK * KS);  // [G][D]
   float* ss = qs + G_MAX * D;                                // [G][BK] scores, then p
   float* m_s = ss + G_MAX * BK;
   float* l_s = m_s + G_MAX;
@@ -142,10 +179,13 @@ __global__ void __launch_bounds__(NT) row_attention_kernel(
   };
 
   __syncthreads();
-  if (lo < hi) stage(0, lo);
+  if (STAGES == 2 && lo < hi) stage(0, lo);
   int buf = 0;
   for (int kb = lo; kb < hi; kb += BK) {
-    if (kb + BK < hi) {
+    if (STAGES == 1) {
+      stage(0, kb);  // one stage: the copy waits for the previous block's products
+      cp_async_wait<0>();
+    } else if (kb + BK < hi) {
       stage(buf ^ 1, kb + BK);  // the next block's copy runs under this block
       cp_async_wait<1>();
     } else {
@@ -253,7 +293,7 @@ __global__ void __launch_bounds__(NT) row_attention_kernel(
       }
     }
     __syncthreads();  // the next iteration's copy reuses this stage
-    buf ^= 1;
+    if (STAGES == 2) buf ^= 1;
   }
 
   if (n_split == 1) {
@@ -316,6 +356,183 @@ __global__ void __launch_bounds__(NT) combine_splits_kernel(const float* __restr
   }
 }
 
+// ---------------------------------------------------------------------------
+// B2's row tiles: the rows that share a block table, on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// A tile is up to 64 / G consecutive rows that read the same block-table row
+// at consecutive lengths (``row_tiles`` on the host: a prefill chunk's rows
+// in the dense engine). One CTA per (tile, KV head, split) stages each
+// 64-key block of the tile's keys once, by cp.async, double-buffered, for
+// all of its rows x G query vectors, and runs S = Q K^T and P V on the
+// tensor cores in FlashAttention-2's register layout (attn::MmaRows, as B1):
+// a chunk of 271 rows reads its slot's prefix 271 / 16 times instead of 271.
+// Each row is masked by its own length and window. The tile's keys are the
+// hull of its rows' live keys, which for consecutive lengths is their union,
+// so no key that every row must skip is loaded. bf16 only; 8 warps copy, the
+// first 4 compute.
+
+constexpr int TILE_NT = 256;  // threads per CTA
+constexpr int TILE_M = 64;    // query vectors per tile: rows x G
+constexpr int TILE_PAD = 8;   // bf16 row padding of the staged Q, K and V
+
+template <int D>
+constexpr size_t tile_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (4 * BK + (D > 128 ? TILE_M : 0)) * (D + TILE_PAD);
+}
+
+template <int D>
+__global__ void __launch_bounds__(TILE_NT, 1) tile_attention_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ o_part, float* __restrict__ ml_part, const int* __restrict__ lengths,
+    const int* __restrict__ tiles, PagedKeys keys, int n_kv, int g, int n_split, float scale,
+    float softcap, int window) {
+  constexpr int KSTR = D + TILE_PAD;
+  using Rows = MmaRows<D, KSTR>;
+  static_assert(BK == MMA_BK, "mma tile shape");
+
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  __nv_bfloat16* kv_s = reinterpret_cast<__nv_bfloat16*>(tile_smem);  // [stage][K, V][BK][KSTR]
+  __nv_bfloat16* qs = kv_s + 4 * BK * KSTR;  // [TILE_M][KSTR] (d = 256 only)
+  __shared__ int hull[2];
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane / 4, tig = lane % 4;
+  const int first = tiles[2 * blockIdx.x], nrow = tiles[2 * blockIdx.x + 1];
+  const int h = blockIdx.y, split = blockIdx.z;
+  const int m_eff = nrow * g;
+  const bool active = warp < 4 && warp * 16 < m_eff;  // owns a live query vector
+
+  // each row's live keys [len - window, len) within the cache; the tile's
+  // keys are their hull, this CTA's share [lo, hi) of it
+  if (tid == 0) {
+    hull[0] = keys.cap;
+    hull[1] = 0;
+  }
+  __syncthreads();
+  if (tid < nrow) {
+    const int len = min(lengths[first + tid], keys.cap);
+    atomicMin(&hull[0], window > 0 ? max(0, len - window) : 0);
+    atomicMax(&hull[1], len);
+  }
+  __syncthreads();
+  const int k_lo = min(hull[0], hull[1]), k_hi = hull[1];
+  const int span = ((k_hi - k_lo + n_split - 1) / n_split + BK - 1) / BK * BK;
+  const int lo = k_lo + split * span;
+  const int hi = min(k_hi, lo + span);
+
+  // this thread's two query vectors (the mma's rows gid and gid + 8): row
+  // first + r / g, head r % g; vectors at or past m_eff are zero and unwritten
+  const int ra = warp * 16 + gid, rb = ra + 8;
+  const bool live_a = ra < m_eff, live_b = rb < m_eff;
+  const int len_a = live_a ? min(lengths[first + ra / g], keys.cap) : 0;
+  const int len_b = live_b ? min(lengths[first + rb / g], keys.cap) : 0;
+  const long long base_a = (((long long)(first + ra / g) * n_kv + h) * g + ra % g) * D;
+  const long long base_b = (((long long)(first + rb / g) * n_kv + h) * g + rb % g) * D;
+  Rows rows;
+  rows.init();
+  if constexpr (Rows::Q_SMEM) {
+    for (int e = tid * 8; e < TILE_M * D; e += TILE_NT * 8) {
+      const int r = e / D, x = e % D;
+      uint4 t = make_uint4(0u, 0u, 0u, 0u);
+      if (r < m_eff)
+        t = __ldg(reinterpret_cast<const uint4*>(
+            q + (((long long)(first + r / g) * n_kv + h) * g + r % g) * D + x));
+      *reinterpret_cast<uint4*>(qs + r * KSTR + x) = t;
+    }
+    rows.q_from_smem(qs + warp * 16 * KSTR, KSTR);
+  } else if (active) {
+    rows.load_q(q, base_a, base_b, live_a, live_b);
+  }
+  const int lo_a = window > 0 ? len_a - window : 0, lo_b = window > 0 ? len_b - window : 0;
+
+  // copy keys [kb, kb + BK) of K and V into stage buf; keys >= hi zero-filled
+  auto stage = [&](int buf, int kb) {
+    __nv_bfloat16* ks = kv_s + buf * 2 * BK * KSTR;
+    __nv_bfloat16* vs = ks + BK * KSTR;
+    for (int e = tid * 8; e < BK * D; e += TILE_NT * 8) {
+      const int c = e / D, x = e % D;
+      const bool ok = kb + c < hi;
+      const long long off = ok ? keys.offset(first, kb + c, h) + x : 0;
+      cp_async16(ks + c * KSTR + x, k + off, ok);
+      cp_async16(vs + c * KSTR + x, v + off, ok);
+    }
+    cp_async_commit();
+  };
+
+  if (lo < hi) stage(0, lo);
+  int buf = 0;
+  for (int kb = lo; kb < hi; kb += BK) {
+    if (kb + BK < hi) {
+      stage(buf ^ 1, kb + BK);  // the next block's copy runs under this block
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* ks = kv_s + buf * 2 * BK * KSTR;
+    if (active) rows.block(ks, ks + BK * KSTR, kb, lo_a, len_a, lo_b, len_b, scale, softcap);
+    __syncthreads();  // the next iteration's copy reuses this stage
+    buf ^= 1;
+  }
+
+  if (!active) return;
+  if (n_split == 1) {
+    rows.store(out, base_a, base_b, live_a, live_b);
+    return;
+  }
+  // the split's unnormalised accumulator and (m, l) of each live vector
+  const long long pa = (((long long)(first + ra / g) * n_kv + h) * n_split + split) * g + ra % g;
+  const long long pb = (((long long)(first + rb / g) * n_kv + h) * n_split + split) * g + rb % g;
+#pragma unroll
+  for (int n = 0; n < Rows::NT_O; ++n) {
+    const int x = n * 8 + 2 * tig;
+    if (live_a) {
+      o_part[pa * D + x] = rows.acc[n][0];
+      o_part[pa * D + x + 1] = rows.acc[n][1];
+    }
+    if (live_b) {
+      o_part[pb * D + x] = rows.acc[n][2];
+      o_part[pb * D + x + 1] = rows.acc[n][3];
+    }
+  }
+  if (tig == 0) {
+    if (live_a) {
+      ml_part[2 * pa] = rows.m_a;
+      ml_part[2 * pa + 1] = rows.l_a;
+    }
+    if (live_b) {
+      ml_part[2 * pb] = rows.m_b;
+      ml_part[2 * pb + 1] = rows.l_b;
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_tiles(const void* q, const void* k, const void* v, void* out, void* o_part,
+                         void* ml_part, const void* lengths, const void* tiles, int n_tiles,
+                         const PagedKeys& keys, int n_rows, int n_kv, int g, int n_split,
+                         float scale, float softcap, int window, cudaStream_t stream) {
+  const size_t smem = tile_smem_bytes<D>();
+  auto kernel = tile_attention_kernel<D>;
+  static bool opted_in = false;
+  cudaError_t err = opt_in_smem(kernel, smem, opted_in);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(n_tiles, n_kv, n_split), TILE_NT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(o_part), static_cast<float*>(ml_part),
+      static_cast<const int*>(lengths), static_cast<const int*>(tiles), keys, n_kv, g, n_split,
+      scale, softcap, window);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  combine_splits_kernel<__nv_bfloat16><<<dim3(n_rows * n_kv, g), NT, 0, stream>>>(
+      static_cast<const float*>(o_part), static_cast<const float*>(ml_part),
+      static_cast<__nv_bfloat16*>(out), g, D, n_split);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, typename Keys>
 cudaError_t launch_rows(const void* q, const void* k, const void* v, void* out, void* o_part,
                         void* ml_part, const void* lengths, const Keys& keys, int n_rows,
@@ -326,7 +543,7 @@ cudaError_t launch_rows(const void* q, const void* k, const void* v, void* out, 
   static bool opted_in = false;
   cudaError_t err = opt_in_smem(kernel, smem, opted_in);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(n_rows, n_kv, n_split), NT, smem, stream>>>(
+  kernel<<<dim3(n_rows, n_kv, n_split), row_threads<D>(), smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(o_part), static_cast<float*>(ml_part),
       static_cast<const int*>(lengths), keys, n_kv, g, n_split, scale, softcap, window);
@@ -356,6 +573,7 @@ cudaError_t launch_any(int dtype, int head_dim, const void* q, const void* k, co
       ROWS_CASE(float, 32)
       ROWS_CASE(float, 64)
       ROWS_CASE(float, 128)
+      ROWS_CASE(float, 256)
       default:
         return cudaErrorInvalidValue;
     }
@@ -366,6 +584,7 @@ cudaError_t launch_any(int dtype, int head_dim, const void* q, const void* k, co
       ROWS_CASE(__nv_bfloat16, 32)
       ROWS_CASE(__nv_bfloat16, 64)
       ROWS_CASE(__nv_bfloat16, 128)
+      ROWS_CASE(__nv_bfloat16, 256)
       default:
         return cudaErrorInvalidValue;
     }
@@ -392,17 +611,40 @@ extern "C" int decode_attention_launch(const void* q, const void* k, const void*
 }
 
 // B2. k/v_pages: (P, page, KV, d) contiguous; block_tables (N, nb) int32.
+// n_tiles > 0 (bf16 only): ``tiles`` (n_tiles, 2) int32 (first row, rows)
+// run on the tensor cores, one CTA per (tile, KV head, split); n_tiles == 0:
+// one CTA per (row, KV head, split) on the CUDA cores.
 extern "C" int paged_attention_launch(const void* q, const void* k_pages, const void* v_pages,
                                       void* out, void* o_part, void* ml_part,
-                                      const void* lengths, const void* block_tables, int n_rows,
-                                      int nb, int page, int n_kv, int g, int head_dim,
-                                      int n_split, float scale, float softcap, int window,
-                                      int dtype, void* stream) {
+                                      const void* lengths, const void* block_tables,
+                                      const void* tiles, int n_tiles, int n_rows, int nb,
+                                      int page, int n_kv, int g, int head_dim, int n_split,
+                                      float scale, float softcap, int window, int dtype,
+                                      void* stream) {
   const PagedKeys keys{static_cast<const int*>(block_tables), nb, page,
                        (long long)n_kv * head_dim, head_dim, nb * page};
-  return int(launch_any(dtype, head_dim, q, k_pages, v_pages, out, o_part, ml_part, lengths,
-                        keys, n_rows, n_kv, g, n_split, scale, softcap, window,
-                        static_cast<cudaStream_t>(stream)));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_tiles == 0)
+    return int(launch_any(dtype, head_dim, q, k_pages, v_pages, out, o_part, ml_part, lengths,
+                          keys, n_rows, n_kv, g, n_split, scale, softcap, window, s));
+  if (dtype != 1 || g < 1 || g > TILE_M || n_tiles < 0 || n_split < 1 || n_split > MAX_SPLIT ||
+      (n_split > 1 && (o_part == nullptr || ml_part == nullptr)))
+    return int(cudaErrorInvalidValue);
+#define TILES_CASE(D)                                                                         \
+  case D:                                                                                     \
+    return int(launch_tiles<D>(q, k_pages, v_pages, out, o_part, ml_part, lengths, tiles,     \
+                               n_tiles, keys, n_rows, n_kv, g, n_split, scale, softcap, window, \
+                               s));
+  switch (head_dim) {
+    TILES_CASE(16)
+    TILES_CASE(32)
+    TILES_CASE(64)
+    TILES_CASE(128)
+    TILES_CASE(256)
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+#undef TILES_CASE
 }
 
 extern "C" const char* decode_attention_error_string(int err) {

@@ -18,8 +18,10 @@
 // accumulator on chip, and writes each output row once. bf16 inputs (the
 // serving path) run the products on the tensor cores with mma.sync
 // (FlashAttention-2's register layout, fp32 accumulation); fp32 inputs (the
-// exactness checks) run them on the CUDA cores in fp32. Not yet: wgmma and
-// TMA, a pipelined gather, and a split over keys for long decode rows, whose
+// exactness checks) run them on the CUDA cores in fp32. Head dims 16 to 256;
+// at 256 the bf16 tile reads Q's fragments from shared memory per k-step
+// (O alone is 128 fp32 registers a thread). Not yet: wgmma and TMA, a
+// pipelined gather, and a split over keys for long decode rows, whose
 // single CTA per (row, KV head) streams the whole context alone.
 //
 // Layouts (all contiguous):
@@ -61,8 +63,10 @@ constexpr size_t smem_bytes() {
          sizeof(long long) * BK;
 }
 
+// one CTA per SM at the least: ptxas may use up to 255 registers rather
+// than spill to fit more
 template <int D>
-__global__ void __launch_bounds__(NT) mixed_paged_attention_f32_kernel(
+__global__ void __launch_bounds__(NT, 1) mixed_paged_attention_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k_pages,
     const float* __restrict__ v_pages, float* __restrict__ out,
     const int* __restrict__ cu_q_lens, const int* __restrict__ kv_lens,
@@ -224,44 +228,42 @@ __global__ void __launch_bounds__(NT) mixed_paged_attention_f32_kernel(
 // bf16: the same tile on the tensor cores (mma.sync m16n8k16, fp32 accumulate)
 // ---------------------------------------------------------------------------
 //
-// FlashAttention-2's register layout: warp w < 4 owns the tile's query rows
-// 16w..16w+15 (rows past m_eff idle). Its Q fragments stay in registers for
-// the whole key loop; S = Q K^T lands in mma accumulators, the online softmax
-// runs on them in fp32 (each row's 64 scores spread over the 4 lanes of a
-// quad), and the probabilities, rounded to bf16, are reused in place as the A
-// operand of P V. K and V are staged in shared memory as [key][d]: a K
-// fragment is one 32-bit read, a V fragment one ldmatrix.trans. Warps 4..7
-// only help gather, which is all a decode tile does at length.
+// FlashAttention-2's register layout (attn::MmaRows): warp w < 4 owns the
+// tile's query rows 16w..16w+15 (rows past m_eff idle). K and V are staged
+// in shared memory as [key][d]. Warps 4..7 only help gather, which is all a
+// decode tile does at length. At d = 256 the tile's queries are staged in
+// shared memory too, and read per k-step, so that O's 128 accumulators a
+// thread fit in registers without a spill.
 
 constexpr int MMA_NT = 256;     // 8 warps gather; the first 4 compute
 constexpr int MMA_WARPS_C = 4;  // compute warps: 4 x 16 rows = M_MAX
-constexpr int MMA_PAD = 8;      // bf16 row padding of the staged K and V
+constexpr int MMA_PAD = 8;      // bf16 row padding of the staged Q, K and V
 
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * 2 * BK * (D + MMA_PAD) + sizeof(long long) * BK;
+  return sizeof(__nv_bfloat16) * (2 * BK + (D > 128 ? M_MAX : 0)) * (D + MMA_PAD) +
+         sizeof(long long) * BK;
 }
 
 template <int D>
-__global__ void __launch_bounds__(MMA_NT) mixed_paged_attention_mma_kernel(
+__global__ void __launch_bounds__(MMA_NT, 1) mixed_paged_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k_pages,
     const __nv_bfloat16* __restrict__ v_pages, __nv_bfloat16* __restrict__ out,
     const int* __restrict__ cu_q_lens, const int* __restrict__ kv_lens,
     const int* __restrict__ block_tables, const int* __restrict__ q_tiles, int n_kv, int g,
     int page, int nb, int qt, float scale, float softcap, int window) {
-  constexpr int KSTR = D + MMA_PAD;  // staged K and V row stride (bf16); rows stay 16-byte aligned
-  constexpr int KSTEPS = D / 16;      // k-steps of S = Q K^T
-  constexpr int NT_S = BK / 8;        // 8-key tiles of S
-  constexpr int NT_O = D / 8;         // 8-dim tiles of O
-  static_assert(D % 16 == 0 && BK % 16 == 0, "mma tile shape");
+  constexpr int KSTR = D + MMA_PAD;  // staged row stride (bf16); rows stay 16-byte aligned
+  using Rows = MmaRows<D, KSTR>;
+  static_assert(BK == MMA_BK, "mma tile shape");
 
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [BK][KSTR]
   __nv_bfloat16* vs = ks + BK * KSTR;                                 // [BK][KSTR]
-  long long* koff = reinterpret_cast<long long*>(vs + BK * KSTR);    // [BK]
+  __nv_bfloat16* qs = vs + BK * KSTR;  // [M_MAX][KSTR] (d = 256 only)
+  long long* koff = reinterpret_cast<long long*>(qs + (Rows::Q_SMEM ? M_MAX * KSTR : 0));
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;  // mma groupID / thread-in-group
+  const int gid = lane / 4;
   const int h = blockIdx.y;
   const int seg = q_tiles[2 * blockIdx.x];
   const int row0 = q_tiles[2 * blockIdx.x + 1];
@@ -276,29 +278,33 @@ __global__ void __launch_bounds__(MMA_NT) mixed_paged_attention_mma_kernel(
   const int* tab = block_tables + (long long)seg * nb;
   const bool active = warp < MMA_WARPS_C && warp * 16 < m_eff;  // owns a live row
 
-  // this thread's two tile rows (the mma's rows gid and gid + 8) and their
-  // query positions; rows at or past m_eff compute garbage-free zeros and are
-  // never written
+  // this thread's two tile rows (the mma's rows gid and gid + 8), their query
+  // positions and offsets; rows at or past m_eff are zero and never written
   const int ra = warp * 16 + gid, rb = ra + 8;
   const int qpa = pos0 + ra / g, qpb = pos0 + rb / g;
-  uint32_t qa[KSTEPS][4];
-  {
-    const long long base_a = (((long long)(row0 + ra / g) * n_kv + h) * g + ra % g) * D;
-    const long long base_b = (((long long)(row0 + rb / g) * n_kv + h) * g + rb % g) * D;
-    const uint32_t* q32 = reinterpret_cast<const uint32_t*>(q);
-#pragma unroll
-    for (int kk = 0; kk < KSTEPS; ++kk) {
-      const int x = kk * 16 + 2 * tig;
-      qa[kk][0] = ra < m_eff ? q32[(base_a + x) / 2] : 0u;
-      qa[kk][1] = rb < m_eff ? q32[(base_b + x) / 2] : 0u;
-      qa[kk][2] = ra < m_eff ? q32[(base_a + x + 8) / 2] : 0u;
-      qa[kk][3] = rb < m_eff ? q32[(base_b + x + 8) / 2] : 0u;
+  auto offset = [&](int r) {  // query vector r's first element in q and out
+    return (((long long)(row0 + r / g) * n_kv + h) * g + r % g) * D;
+  };
+  Rows rows;
+  rows.init();
+  if constexpr (Rows::Q_SMEM) {
+    // query vector r is head r % g of packed row row0 + r / g; rows past
+    // m_eff are zero
+    for (int e = tid * 8; e < M_MAX * D; e += MMA_NT * 8) {
+      const int r = e / D, x = e % D;
+      uint4 t = make_uint4(0u, 0u, 0u, 0u);
+      if (r < m_eff)
+        t = __ldg(reinterpret_cast<const uint4*>(
+            q + offset(r) + x));
+      *reinterpret_cast<uint4*>(qs + r * KSTR + x) = t;
     }
+    rows.q_from_smem(qs + warp * 16 * KSTR, KSTR);
+  } else {
+    rows.load_q(q, offset(ra), offset(rb), ra < m_eff, rb < m_eff);
   }
-  float acc[NT_O][4];
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+  // the keys each row reads: at or before its position, inside its window
+  const int hi_a = min(qpa + 1, k_hi), hi_b = min(qpb + 1, k_hi);
+  const int lo_a = window > 0 ? qpa - window + 1 : 0, lo_b = window > 0 ? qpb - window + 1 : 0;
 
   for (int kb = k_lo; kb < k_hi; kb += BK) {
     if (tid < BK) {
@@ -324,105 +330,11 @@ __global__ void __launch_bounds__(MMA_NT) mixed_paged_attention_mma_kernel(
       *reinterpret_cast<uint4*>(vs + c * KSTR + x) = vr;
     }
     __syncthreads();
-    if (active) {
-      // S = Q K^T for the warp's 16 rows x BK keys
-      float s[NT_S][4];
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-        s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-        const __nv_bfloat16* krow = ks + (j * 8 + gid) * KSTR + 2 * tig;
-#pragma unroll
-        for (int kk = 0; kk < KSTEPS; ++kk) {
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(krow + kk * 16);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(krow + kk * 16 + 8);
-          mma_bf16(s[j], qa[kk], b0, b1);
-        }
-      }
-      // scale, softcap, mask; the block's row maxima over each quad
-      float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kp = kb + j * 8 + 2 * tig + (e & 1);
-          const int qp = e < 2 ? qpa : qpb;
-          const bool ok = kp < k_hi && kp <= qp && (window <= 0 || kp > qp - window);
-          float v = s[j][e] * scale;
-          if (softcap > 0.f) v = softcap * tanhf(v / softcap);
-          s[j][e] = ok ? v : -INFINITY;
-          if (ok) {
-            if (e < 2) mx_a = fmaxf(mx_a, v);
-            else mx_b = fmaxf(mx_b, v);
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, o));
-        mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, o));
-      }
-      const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-      float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-      for (int j = 0; j < NT_S; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float v = s[j][e];
-          const float pe = v == -INFINITY ? 0.f : expf(v - (e < 2 ? mn_a : mn_b));
-          s[j][e] = pe;
-          if (e < 2) sum_a += pe;
-          else sum_b += pe;
-        }
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        sum_a += __shfl_xor_sync(0xffffffffu, sum_a, o);
-        sum_b += __shfl_xor_sync(0xffffffffu, sum_b, o);
-      }
-      const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
-      l_a = al_a * l_a + sum_a;
-      l_b = al_b * l_b + sum_b;
-      m_a = mn_a;
-      m_b = mn_b;
-#pragma unroll
-      for (int n = 0; n < NT_O; ++n) {
-        acc[n][0] *= al_a;
-        acc[n][1] *= al_a;
-        acc[n][2] *= al_b;
-        acc[n][3] *= al_b;
-      }
-      // O += P V: the S accumulators of key tiles 2k and 2k+1 are, rounded
-      // to bf16, exactly the A fragment of key step k
-#pragma unroll
-      for (int k2 = 0; k2 < BK / 16; ++k2) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * k2][0], s[2 * k2][1]),
-                                pack_bf16(s[2 * k2][2], s[2 * k2][3]),
-                                pack_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1]),
-                                pack_bf16(s[2 * k2 + 1][2], s[2 * k2 + 1][3])};
-        // lanes 0..15 name the 16 key rows of the two 8x8 matrices
-        const __nv_bfloat16* vrow = vs + (k2 * 16 + (lane & 15)) * KSTR;
-#pragma unroll
-        for (int n = 0; n < NT_O; ++n) {
-          uint32_t b0, b1;
-          ldmatrix_x2_trans(b0, b1, vrow + n * 8);
-          mma_bf16(acc[n], pa, b0, b1);
-        }
-      }
-    }
+    if (active) rows.block(ks, vs, kb, lo_a, hi_a, lo_b, hi_b, scale, softcap);
     __syncthreads();
   }
 
-  if (!active) return;
-  const float inv_a = 1.f / fmaxf(l_a, 1e-37f), inv_b = 1.f / fmaxf(l_b, 1e-37f);
-  uint32_t* o32 = reinterpret_cast<uint32_t*>(out);
-  const long long base_a = (((long long)(row0 + ra / g) * n_kv + h) * g + ra % g) * D;
-  const long long base_b = (((long long)(row0 + rb / g) * n_kv + h) * g + rb % g) * D;
-#pragma unroll
-  for (int n = 0; n < NT_O; ++n) {
-    const int x = n * 8 + 2 * tig;
-    if (ra < m_eff) o32[(base_a + x) / 2] = pack_bf16(acc[n][0] * inv_a, acc[n][1] * inv_a);
-    if (rb < m_eff) o32[(base_b + x) / 2] = pack_bf16(acc[n][2] * inv_b, acc[n][3] * inv_b);
-  }
+  if (active) rows.store(out, offset(ra), offset(rb), ra < m_eff, rb < m_eff);
 }
 
 template <int D>
@@ -493,6 +405,7 @@ cudaError_t launch_dim(int head_dim, const void* q, const void* k_pages, const v
     MPA_CASE(32)
     MPA_CASE(64)
     MPA_CASE(128)
+    MPA_CASE(256)
     default:
       return cudaErrorInvalidValue;
   }

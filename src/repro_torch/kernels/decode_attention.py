@@ -27,7 +27,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import decode_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)  # every kernel of the port (B1-B4) takes these
 G_MAX = 16  # query heads per KV head (csrc/decode_attention.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
@@ -44,7 +44,7 @@ def launchers():
     dense.argtypes = [p] * 7 + [i, i, ll, ll, ll, i, i, i, i, f, f, i, i, p]
     dense.restype = i
     paged = lib.paged_attention_launch
-    paged.argtypes = [p] * 8 + [i] * 7 + [f, f, i, i, p]
+    paged.argtypes = [p] * 9 + [i] * 8 + [f, f, i, i, p]
     paged.restype = i
     err = lib.decode_attention_error_string
     err.argtypes, err.restype = [i], ctypes.c_char_p
@@ -74,6 +74,17 @@ def workspace(q: torch.Tensor, n_split: int):
     return part.data_ptr(), part.data_ptr() + 4 * o_elems, part
 
 
+def check_kernel_shape(name: str, dtype: torch.dtype, d: int, g: int, g_max: int) -> None:
+    """What every attention kernel of the port (B1-B4) takes on the card:
+    float32 or bfloat16, a head_dim in ``HEAD_DIMS``, 1..``g_max`` query
+    heads per KV head."""
+    if dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {dtype}")
+    if d not in HEAD_DIMS or not 1 <= g <= g_max:
+        raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS} and 1..{g_max} query "
+                         f"heads per KV head, got d={d}, G={g}")
+
+
 def check_query(q: torch.Tensor, lengths: torch.Tensor, name: str):
     """The checks B2 and B3 share: q (N, KV, G, d) contiguous, lengths (N,)
     int32 on q's device; on the card also the kernel's dtypes and shapes."""
@@ -86,12 +97,7 @@ def check_query(q: torch.Tensor, lengths: torch.Tensor, name: str):
                          f"{q.device}, got {tuple(lengths.shape)} {lengths.dtype} on "
                          f"{lengths.device}")
     if q.is_cuda:
-        N, KV, G, d = q.shape
-        if q.dtype not in DTYPE_CODES:
-            raise TypeError(f"{name}: kernel takes float32 or bfloat16, got {q.dtype}")
-        if d not in HEAD_DIMS or not 1 <= G <= G_MAX:
-            raise ValueError(f"{name}: kernel takes head_dim in {HEAD_DIMS} and at most "
-                             f"{G_MAX} query heads per KV head, got d={d}, G={G}")
+        check_kernel_shape(name, q.dtype, q.shape[3], q.shape[2], G_MAX)
 
 
 def _check(q, k, v, lengths):

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.decode_attention import DTYPE_CODES, HEAD_DIMS
+from repro_torch.kernels.decode_attention import DTYPE_CODES, check_kernel_shape
 from repro_torch.kernels.ref import flash_attention_ref
 
 G_MAX = 64  # query heads per KV head: the fp32 kernel holds 64 query vectors per CTA
@@ -53,11 +53,7 @@ def _check(q, k, v):
                         f"{q.device}/{k.device}/{v.device}")
     if not q.is_cuda:
         return
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS or H // k.shape[2] > G_MAX:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS} and at most {G_MAX} query "
-                         f"heads per KV head, got d={d}, G={H // k.shape[2]}")
+    check_kernel_shape("flash_attention", q.dtype, d, H // k.shape[2], G_MAX)
     vec = 16 // q.element_size()  # the kernel moves 16 bytes at a time
     if not q.is_contiguous() or q.data_ptr() % 16:
         raise ValueError("q must be contiguous and 16-byte aligned")

@@ -16,12 +16,18 @@ launches.
 
 ``paged_attention`` (B2) is the port of the Pallas ``paged_attention``: one
 query per row, at position ``lengths[n] - 1``, over the pages its block
-table names. It launches the single-query kernel of
-``csrc/decode_attention.cu`` (shared with B3, ``kernels.decode_attention``)
-with the table addressing policy, or on the CPU runs
-``kernels.ref.paged_attention_ref``. The engine's dense fallback calls it
-with each slot's cache row as one page of ``max_len`` tokens.
-``paged_attention.launches`` counts its launches.
+table names. On the CPU it runs ``kernels.ref.paged_attention_ref``; on the
+card it launches ``csrc/decode_attention.cu`` (shared with B3,
+``kernels.decode_attention``) with the table addressing policy. Its rows
+come in tiles built on the host (``row_tiles``): consecutive rows that
+read one block-table row at consecutive lengths — the rows of a prefill
+chunk in the engine's dense fallback, which calls it with each slot's cache
+row as one page of ``max_len`` tokens — share a tile of up to
+``q_tile_rows(G)`` rows, whose keys the kernel stages once for all of them
+and multiplies on the tensor cores (bf16). A call whose tiles are all one
+row (decode rows of distinct slots), and every fp32 call, runs one CTA per
+(row, KV head) split over keys, as B3 does. ``paged_attention.launches``
+counts its launches.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import (
     DTYPE_CODES,
-    HEAD_DIMS,
+    check_kernel_shape,
     check_query,
     launchers,
     split_count,
@@ -51,6 +57,38 @@ def q_tile_rows(group: int) -> int:
     if not 1 <= group <= M_MAX:
         raise ValueError(f"GQA group {group} outside the kernel's 1..{M_MAX}")
     return M_MAX // group
+
+
+def row_tiles(block_tables: np.ndarray, lengths: np.ndarray, group: int) -> np.ndarray:
+    """(n_tiles, 2) int32 ``(first row, rows)`` of B2's one-query rows, in
+    row order: each run of consecutive rows whose block-table rows are
+    identical and whose lengths rise by one (a prefill chunk's rows) is cut
+    into tiles of ``q_tile_rows(group)``; every other row is a tile of its
+    own. Rows of different tables never share a tile, and the keys a tile's
+    rows read together are exactly the union of what each reads."""
+    qt = q_tile_rows(group)
+    tabs = np.asarray(block_tables)
+    lens = np.asarray(lengths, np.int64)
+    n = lens.shape[0]
+    if tabs.shape[0] != n:
+        raise ValueError(f"block_tables has {tabs.shape[0]} rows, lengths {n}")
+    if n == 0:
+        return np.zeros((0, 2), np.int32)
+    idx = np.arange(n)
+    run_start = np.ones(n, bool)
+    run_start[1:] = ~((tabs[1:] == tabs[:-1]).all(axis=1) & (lens[1:] == lens[:-1] + 1))
+    first = np.maximum.accumulate(np.where(run_start, idx, 0))  # each row's run start
+    starts = np.flatnonzero((idx - first) % qt == 0)
+    return np.stack([starts, np.diff(np.append(starts, n))], axis=1).astype(np.int32)
+
+
+def check_tiles(tiles: Optional[torch.Tensor], q: torch.Tensor, what: str) -> None:
+    """A kernel's tile list, required for q on the card: a contiguous
+    (n_tiles, 2) int32 tensor on q's device."""
+    if tiles is None or tiles.dtype != torch.int32 or tiles.dim() != 2 \
+            or tiles.shape[1] != 2 or tiles.device != q.device or not tiles.is_contiguous():
+        raise ValueError(f"tiles must be {what} as a contiguous (n_tiles, 2) int32 tensor on "
+                         f"{q.device}")
 
 
 def q_tiles(cu_q_lens: np.ndarray, group: int) -> np.ndarray:
@@ -118,15 +156,9 @@ def mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
         return mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
                                    window=window, softcap=softcap)
     N, KV, G, d = q.shape
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    check_kernel_shape("mixed_paged_attention", q.dtype, d, G, M_MAX)
     qt = q_tile_rows(G)
-    if tiles is None or tiles.dtype != torch.int32 or tiles.dim() != 2 \
-            or tiles.shape[1] != 2 or tiles.device != q.device or not tiles.is_contiguous():
-        raise ValueError("tiles must be q_tiles(cu_q_lens, G) as a contiguous (n_tiles, 2) "
-                         "int32 tensor on q's device")
+    check_tiles(tiles, q, "q_tiles(cu_q_lens, G)")
     out = torch.empty_like(q)
     if tiles.shape[0] == 0:
         return out
@@ -148,12 +180,13 @@ mixed_paged_attention.launches = 0
 
 
 def paged_attention(q, k_pages, v_pages, lengths, block_tables, *,
-                    window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
+                    window: Optional[int] = None, softcap: Optional[float] = None,
+                    tiles: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q: (N, KV, G, d) one query per row; k/v_pages: (P, page, KV, d)
     contiguous pool; lengths: (N,) int32 keys each row attends;
     block_tables: (N, nb) int32 page ids in logical order. Returns
-    (N, KV, G, d)."""
+    (N, KV, G, d). ``tiles`` is ``row_tiles(block_tables, lengths, G)`` on
+    q's device, required on the card (the CPU path ignores it)."""
     check_query(q, lengths, "paged_attention")
     N, KV, G, d = q.shape
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape or k_pages.shape[2:] != (KV, d):
@@ -174,16 +207,20 @@ def paged_attention(q, k_pages, v_pages, lengths, block_tables, *,
     if not q.is_cuda:
         return paged_attention_ref(q, k_pages, v_pages, lengths, block_tables, window=window,
                                    softcap=softcap)
+    check_tiles(tiles, q, "row_tiles(block_tables, lengths, G)")
     page, nb = k_pages.shape[1], block_tables.shape[1]
-    n_split = split_count(N * KV, nb * page)
+    # tiles of several rows run on the tensor cores (bf16); a call of one-row
+    # tiles, or in fp32, one CTA per row
+    n_tiles = tiles.shape[0] if q.dtype == torch.bfloat16 and tiles.shape[0] < N else 0
+    n_split = split_count((n_tiles or N) * KV, nb * page)
     out = torch.empty_like(q)
     o_part, ml_part, _keep = workspace(q, n_split)
     _, paged, err_string = launchers()
     err = paged(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(), o_part,
-                ml_part, lengths.data_ptr(), block_tables.data_ptr(), N, nb, page, KV, G, d,
-                n_split, 1.0 / d**0.5, 0.0 if softcap is None else float(softcap),
-                0 if window is None else int(window), DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
+                ml_part, lengths.data_ptr(), block_tables.data_ptr(), tiles.data_ptr(), n_tiles,
+                N, nb, page, KV, G, d, n_split, 1.0 / d**0.5,
+                0.0 if softcap is None else float(softcap), 0 if window is None else int(window),
+                DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"paged_attention launch failed: {err_string(err).decode()}")
     paged_attention.launches += 1

@@ -43,9 +43,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.packed_step import PagedView, packed_step, supports_packed
+from repro_torch.core.packed_step import DenseView, PagedView, packed_step, supports_packed
 from repro_torch.core.scheduler import Scheduler, SchedulerConfig, StepPlan
-from repro_torch.kernels.paged_attention import q_tiles
+from repro_torch.kernels.paged_attention import q_tiles, row_tiles
 from repro_torch.models.model import Model
 from repro_torch.obs.trace import LANE_COMPUTE, LANE_PREFETCH_STAGE, LANE_SCHED, LANE_STEP, NOOP
 from repro_torch.serving.request import Request
@@ -295,12 +295,17 @@ class Engine:
             logits = self._packed_paged(plan, tokens, slots, positions, row, rows)
         else:
             # dense: ONE host->device copy of the rows' tokens, slots and
-            # positions and the rows to sample; DenseView derives the rest
-            parts = [tokens, slots, positions, np.asarray(rows, np.int32)]
+            # positions, the rows to sample and B2's row tiles (a chunk's
+            # rows share its slot's keys); DenseView derives the rest
+            cfg = self.model.cfg
+            tiles = row_tiles(slots[:, None], positions + 1, cfg.n_heads // cfg.n_kv_heads)
+            parts = [tokens, slots, positions, np.asarray(rows, np.int32), tiles.ravel()]
             meta = torch.from_numpy(np.concatenate(parts)).to(self.device)
-            d_tokens, d_slots, d_pos, d_rows = torch.split(meta, [p.size for p in parts])
-            logits, self.cache = packed_step(self.model, self.params, self.cache, d_tokens,
-                                             d_slots, d_pos)
+            d_tokens, d_slots, d_pos, d_rows, d_tiles = torch.split(meta,
+                                                                    [p.size for p in parts])
+            logits, self.cache = packed_step(
+                self.model, self.params, self.cache, d_tokens, d_slots, d_pos,
+                DenseView(d_slots, d_pos, tiles=d_tiles.view(-1, 2)))
             logits = logits[d_rows.long()]
         # one device->host transfer of just the sampled token ids
         if rows:
