@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py          # every phase, the result line last
 
 Runs from a checkout of the repository, on a machine with a CUDA card and the
 CUDA toolkit; it needs no network. Phases, each printing JSON lines:
@@ -9,14 +9,19 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   device          card, power limit, torch/CUDA versions; TF32 off for fp32 checks
   build           nvcc builds every kernel of the port from src/repro_torch, one
                   process per source, all at once; ptxas's registers and spills
-                  of every instantiation (none at head_dim 256 may spill)
+                  of every instantiation (none of B1's, and none at head_dim
+                  256, may spill)
   kernel_parity   each kernel against its plain PyTorch version on the card, with
                   NaN in every dead key, at the main paths' shapes (Llama3.1-8B
                   heads: KV 8, G 4, d 128), at gemma2-2b's (KV 4, G 2, d 256,
                   window 4096, softcap 50; dropping either from the plain
                   version must fail), at kernels_micro's shapes and at the
                   reduced test shapes, with times beside the card's bound and one
-                  PyTorch library call: B1 mixed_paged_attention, B2
+                  PyTorch library call: B1 mixed_paged_attention (also rows of
+                  up to 131072 keys, split over keys, where a combine that did
+                  not rescale its partials by their maxima must fail; the plan
+                  each case ran, read back from its scratch, against
+                  ref.mixed_split_plan), B2
                   paged_attention (pages of 1, 16 and max_len; the dense
                   engine's decode-only and prefill-bearing steps, the latter's
                   chunk rows in row tiles), B3
@@ -28,7 +33,10 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   and on the CPU (plain version): the same greedy tokens
   engine_bf16     the engine in bf16 at Llama3.1-8B's attention heads, reduced
                   depth and width: every attention call of the run against
-                  the plain version on the same bf16 tensors
+                  the plain version on the same bf16 tensors, and the plan
+                  each call ran (read back from its scratch) against
+                  ref.mixed_split_plan, a decode-only and a mixed step among
+                  them and a decode row of more than one split
   reduced_serial  reduced width, fp32, on the card: serial per-request prefill +
                   decode (B4, B3), the paged engine (B1) and the dense engine (B2)
                   give the same greedy tokens, and the CPU's serial run too
@@ -59,6 +67,7 @@ script exits nonzero and prints no result. Without a CUDA card it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -280,16 +289,31 @@ def device_ms(torch, fn, reps, warmup=2):
     return sum(parts.values()), "profiler", parts, {e.key[:60]: e.count for e in events}
 
 
+def host_us(torch, fn, reps):
+    """Mean host time to issue one call of ``fn``: ``reps`` calls back to
+    back with no synchronisation between them (a serving step issues its
+    layers' calls so), the wrapper's Python and its launches."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def timings(torch, kernel, plain, library, reps):
     """Device times of the kernel, its plain version and the library call
-    (None where no one PyTorch call computes the function), and the kernel's
-    event-timed span (host enqueue included)."""
+    (None where no one PyTorch call computes the function), the kernel's
+    event-timed span (host enqueue included) and its host time a call."""
     k_ms, how, parts, records = device_ms(torch, kernel, reps)
     p_ms = device_ms(torch, plain, 2, warmup=1)[0]
     l_ms = device_ms(torch, library, reps)[0] if library is not None else None
     return dict(kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, timing=how,
                 kernel_parts=parts, kernel_records=records, timed_calls=reps,
-                kernel_event_ms=time_ms(torch, kernel, reps))
+                kernel_event_ms=time_ms(torch, kernel, reps),
+                kernel_host_us=host_us(torch, kernel, reps))
 
 
 def library_call(torch, case):
@@ -375,16 +399,83 @@ def finish(rec):
     return rec
 
 
-def run_case(torch, name, case):
-    from repro_torch.kernels.paged_attention import mixed_paged_attention
-    from repro_torch.kernels.ref import mixed_attention_ref
+@contextlib.contextmanager
+def recorded_scratch():
+    """Keeps every scratch B1's wrapper makes inside the block, in call
+    order, so that the plan each launch ran can be read back from it."""
+    import repro_torch.kernels.paged_attention as pa
+
+    made, real = [], pa.key_split_workspace
+
+    def recording(q, n_tiles, n_split, sms):
+        made.append((real(q, n_tiles, n_split, sms), n_split, sms))
+        return made[-1][0]
+
+    pa.key_split_workspace = recording
+    try:
+        yield made
+    finally:
+        pa.key_split_workspace = real
+
+
+def plan_check(torch, made, q, k_pages, cu_q_lens, kv_lens, block_tables, tiles, window):
+    """The plan one B1 launch ran, read back from its scratch (``made``, one
+    entry of ``recorded_scratch``): each leading tile's kind and live spans,
+    the heavy CTAs' span and the partial slots used, against
+    ``ref.mixed_split_plan`` on the same inputs."""
+    from repro_torch.kernels.paged_attention import key_splits, q_tile_rows
+    from repro_torch.kernels.ref import mixed_split_plan
+
+    sc, n_split, sms = made
+    _, KV, G, d = q.shape
+    n_tiles = tiles.shape[0]
+    ints = sc.tensor[:sc.o_part].view(torch.int32).cpu()
+    cap = n_tiles * n_split
+    counts = ints[sc.counts:sc.counts + 3].tolist()
+    items = ints[:4 * cap].view(2, cap, 2)
+    card = {}
+    for kind in (0, 1):
+        for t, split in items[kind, :counts[kind]].tolist():
+            card.setdefault(t, (kind, []))[1].append(split)
+    card = {t: (kind, sorted(splits)) for t, (kind, splits) in card.items()}
+    bf16 = q.dtype == torch.bfloat16
+    span = key_splits(block_tables.shape[1] * k_pages.shape[1])[1]
+    cu, lens = cu_q_lens.tolist(), kv_lens.tolist()
+    ctas, heavy_span = mixed_split_plan(
+        tiles.cpu().tolist(), cu, lens, tile_rows=q_tile_rows(G), group=G, span_keys=span,
+        pair=bf16, light_max=16 if bf16 else 0, n_kv=KV, sms=sms, window=window or None)
+    plain = {c["tile"]: (c["kind"], list(range(len(c["spans"])))) for c in ctas}
+    slots = sum(len(c["spans"]) * c["m_eff"] for c in ctas if len(c["spans"]) > 1)
+    q_lens = [hi - lo for lo, hi in zip(cu, cu[1:])]
+    seg_of = {c["tile"]: c["seg"] for c in ctas}
+    return dict(matches=card == plain and int(ints[sc.counts + 5]) == heavy_span
+                and counts[2] == slots,
+                ctas=len(card), items=counts[0] + counts[1], slots=counts[2],
+                slot_cap=(sc.ml_part - sc.o_part) // (KV * d), heavy_span=heavy_span,
+                max_decode_splits=max((len(card[t][1]) for t in card
+                                       if q_lens[seg_of.get(t, 0)] == 1), default=0),
+                decode_only=max(q_lens) == 1,
+                mixed=max(q_lens) > 1 and 1 in q_lens)
+
+
+def run_case(torch, name, case, split_fault=False, library=True):
+    """One B1 case: parity against the plain version (fp32, same inputs),
+    the faults the check must reject (softcap or window dropped; with
+    ``split_fault``, the partials combined without rescaling by their
+    maxima, as the kernel splits them), then times beside the bound and,
+    with ``library``, SDPA over the same segments."""
+    from repro_torch.kernels.paged_attention import cta_rows, key_splits, mixed_paged_attention
+    from repro_torch.kernels.ref import mixed_attention_ref, mixed_split_ref
 
     dtype = str(case["q"].dtype).replace("torch.", "")
     args = (case["q"], case["k"], case["v"], case["cu"], case["kv_lens"], case["tables"])
     w, cap = case["window"], case["softcap"]
     kw = dict(window=w, softcap=cap)
-    got = mixed_paged_attention(*args, **kw, tiles=case["tiles"])
+    with recorded_scratch() as made:
+        got = mixed_paged_attention(*args, **kw, tiles=case["tiles"])
     torch.cuda.synchronize()
+    plan = plan_check(torch, made[0], case["q"], case["k"], case["cu"], case["kv_lens"],
+                      case["tables"], case["tiles"], w)
     # the plain version in fp32 from the same inputs
     plain_args = (*(a.float() for a in args[:3]), *args[3:])
     plain = mixed_attention_ref(*plain_args, **kw)
@@ -395,20 +486,31 @@ def run_case(torch, name, case):
         faults["no_softcap"] = mixed_attention_ref(*plain_args, window=w)[:n]
     if w is not None:
         faults["no_window"] = mixed_attention_ref(*plain_args, softcap=cap)[:n]
+    n_split, span = key_splits(case["tables"].shape[1] * case["page"])
+    if split_fault:
+        faults["no_rescale"] = mixed_split_ref(
+            *plain_args, cta_rows=cta_rows(case["q"].dtype, case["q"].shape[2]),
+            span_keys=span, rescale=False, **kw)[:n]
     rec = parity_record(torch, name, "mixed_paged_attention", dtype, got[:n], plain[:n], faults,
                         dict(rows=n, segments=len(case["segs"]), kv=case["q"].shape[1],
                              g=case["q"].shape[2], d=case["q"].shape[3], page=case["page"],
-                             window=w, softcap=cap))
+                             window=w, softcap=cap, n_split=n_split, span_keys=span))
+    rec.update(plan=plan, ok=rec["ok"] and plan["matches"] and plan["slots"] <= plan["slot_cap"])
+    del faults  # fp32 copies of every row: free before the timed calls
     nbytes, flops = work(case)
     b, by = bound_of(nbytes, flops, dtype)
-    call, rows = library_call(torch, case)
-    lib_err = float((rows(call()).float() - plain[:n]).abs().max())
+    call, lib_err, lib_name = None, None, None
+    if library:
+        call, rows = library_call(torch, case)
+        lib_err = float((rows(call()).float() - plain[:n]).abs().max())
+        lib_name = ("torch.nn.functional.scaled_dot_product_attention (padded batch, "
+                    "boolean mask, KV pre-gathered)")
     rec.update(
         **timings(torch, lambda: mixed_paged_attention(*args, **kw, tiles=case["tiles"]),
                   lambda: mixed_attention_ref(*args, **kw), call, reps=10),
         bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
-        library="torch.nn.functional.scaled_dot_product_attention (padded batch, "
-                "boolean mask, KV pre-gathered)",
+        library=lib_name or "none timed: the padded SDPA batch of this case would hold "
+                            "every segment at the longest row's length",
         library_max_abs_err=lib_err)
     return finish(rec)
 
@@ -441,6 +543,10 @@ def kernel_parity(torch):
                                               window=16, softcap=3.0)),
         ("d32_g8_fp32", 11, small, dict(kv=1, g=8, d=32, page=8, dtype=f32)),
         ("d64_g1_bf16", 12, small, dict(kv=4, g=1, d=64, page=8, dtype=bf16)),
+        # G 64: a q-tile is one row, a bf16 CTA two, and a decode row is no
+        # light item (64 vectors): B1's wgmma path at its widest group
+        ("d128_g64_bf16", 21, small, dict(kv=1, g=64, d=128, page=8, dtype=bf16,
+                                          window=100, softcap=5.0)),
         # gemma2-2b's attention (KV 4, G 2, d 256, window 4096 on its local
         # layers, softcap 50): decode rows and two chunks at lengths up to
         # 8192, so the window bites; queries scaled by 64 so that scores
@@ -450,10 +556,32 @@ def kernel_parity(torch):
         ("gemma2_global_bf16", 15, gemma_mixed, dict(gemma, dtype=bf16, softcap=50.0,
                                                       q_scale=64.0)),
     ]
+    # the split over keys: each case also rejects a combine that sums the
+    # partials without rescaling them by their maxima
+    long_rows = [(1, 8192), (1, 32768), (1, 65536), (1, 131072), (512, 4096 + 512)]
+    windowed = [(1, int(c)) for c in np.linspace(8192, 32768, 8)] + [(256, 16384)]
+    short = [(1, 1), (1, 17), (1, 64), (1, 65), (1, 200), (1, 300), (40, 300), (1, 32768)]
+    split_cases = [
+        # Llama3.1's context: 4 decode rows up to 131072 keys (537 MB of K/V)
+        ("decode_long_bf16", 16, long_rows, dict(llama, dtype=bf16), False),
+        # each row's 1024 window keys in 2 spans of 512; keys left of it never read
+        ("split_window_bf16", 17, windowed, dict(llama, dtype=bf16, window=1024, softcap=3.0),
+         True),
+        # the short rows' CTAs hold one span; the 32K row's 64
+        ("split_short_rows_bf16", 18, short, dict(llama, dtype=bf16), True),
+        ("split_short_rows_fp32", 19, short, dict(llama, dtype=f32), True),
+        ("page1_long_fp32", 20, [(1, 3000), (1, 700), (33, 600), (1, 1)],
+         dict(llama, page=1, dtype=f32), True),
+    ]
     recs = {}
     for name, seed, segs, kw in cases:
         case = make_case(torch, seed, segs, **kw)
         recs[name] = run_case(torch, name, case)
+        del case
+        torch.cuda.empty_cache()
+    for name, seed, segs, kw, library in split_cases:
+        case = make_case(torch, seed, segs, **kw)
+        recs[name] = run_case(torch, name, case, split_fault=True, library=library)
         del case
         torch.cuda.empty_cache()
     return recs
@@ -1108,10 +1236,14 @@ def engine_bf16(torch):
     from repro_torch.models import build_model
     from repro_torch.serving.request import Request
 
-    used = []
+    used, plans = [], []
 
     def checked(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, **kw):
-        out = mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, **kw)
+        with recorded_scratch() as made:
+            out = mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
+                                        **kw)
+        plans.append(plan_check(torch, made[0], q, k_pages, cu_q_lens, kv_lens, block_tables,
+                                kw["tiles"], kw["window"]))
         plain = mixed_attention_ref(q.float(), k_pages.float(), v_pages.float(), cu_q_lens,
                                     kv_lens, block_tables, window=kw["window"],
                                     softcap=kw["softcap"])
@@ -1141,9 +1273,16 @@ def engine_bf16(torch):
                g=cfg.n_heads // cfg.n_kv_heads, d=cfg.head_dim, layers=cfg.n_layers,
                steps=eng.steps_run, kernel_launches=launches, calls_checked=len(used),
                tol_used_max=max(used), tol_used_median=float(np.median(used)),
+               plans_checked=len(plans),
+               plans_matching=sum(p["matches"] and p["slots"] <= p["slot_cap"] for p in plans),
+               decode_only_calls=sum(p["decode_only"] for p in plans),
+               mixed_calls=sum(p["mixed"] for p in plans),
+               max_decode_splits=max(p["max_decode_splits"] for p in plans),
                nonfinite_logits=eng.nonfinite, all_completed=done)
-    rec["ok"] = (done and launches == len(used) == eng.steps_run * cfg.n_layers
-                 and max(used) <= 1 and eng.nonfinite == 0)
+    rec["ok"] = (done and launches == len(used) == len(plans) == eng.steps_run * cfg.n_layers
+                 and max(used) <= 1 and eng.nonfinite == 0
+                 and rec["plans_matching"] == len(plans) and rec["decode_only_calls"] > 0
+                 and rec["mixed_calls"] > 0 and rec["max_decode_splits"] > 1)
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"engine_bf16: {rec}")
@@ -1798,13 +1937,16 @@ def main() -> int:
                                      ptxas=ptxas[b.name]) for b in built},
                instantiations=sum(len(fs) for fs in ptxas.values()),
                spilling=[f["function"] for f in spills],
-               d256_spilling=[f["function"] for f in spills if f["head_dim"] == 256])
-    # every head-dim-256 instantiation must keep its registers (a rebuilt
-    # library reports nothing: build_all skips a source that is up to date)
-    rec["ok"] = not rec["d256_spilling"]
+               d256_spilling=[f["function"] for f in spills if f["head_dim"] == 256],
+               b1_spilling=[f["function"] for f in spills
+                            if "mixed_paged_attention" in f["function"]])
+    # every head-dim-256 instantiation, and every one of B1's, must keep its
+    # registers (a rebuilt library reports nothing: build_all skips a source
+    # that is up to date)
+    rec["ok"] = not rec["d256_spilling"] and not rec["b1_spilling"]
     emit(rec)
     if not rec["ok"]:
-        raise AssertionError(f"build: instantiations at head_dim 256 spill: {rec}")
+        raise AssertionError(f"build: instantiations spill: {rec}")
 
     parity = kernel_parity(torch)
     parity.update(single_query_and_flash_parity(torch))
@@ -1830,7 +1972,8 @@ def main() -> int:
     # each kernel: its launches on the main path that runs it, timed at that
     # path's shapes (the first one heads the line); plain-version calls on
     # the card summed over those paths
-    paths = {"mixed_paged_attention": (served, ["mixed_bf16", "gemma2_mixed_bf16"]),
+    paths = {"mixed_paged_attention": (served, ["mixed_bf16", "gemma2_mixed_bf16",
+                                                "decode16_bf16", "decode_long_bf16"]),
              "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16",
                                                 "b2_gemma2_dense_engine_bf16",
                                                 "b2_gemma2_dense_prefill_bf16"]),
@@ -1851,7 +1994,8 @@ def main() -> int:
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], library=main_case["library"],
             timing=main_case["timing"],
-            event_ms=main_case["kernel_event_ms"], shape_case=cases[0], main_path=path["phase"],
+            event_ms=main_case["kernel_event_ms"], host_us=main_case["kernel_host_us"],
+            shape_case=cases[0], main_path=path["phase"],
             main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],
                                   plain_ms=parity[n]["plain_ms"],
                                   bound_ms=parity[n]["bound_ms"],

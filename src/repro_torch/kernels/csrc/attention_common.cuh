@@ -162,21 +162,22 @@ __device__ __forceinline__ float tanh_fast(float x) {
 // by the mma.sync kernels (B1, B2's row tiles, B4 at d <= 32). Lane
 // (gid, tig) = (lane / 4, lane % 4) owns rows gid ("a") and gid + 8 ("b")
 // of the 16: their online-softmax state and their accumulator columns
-// 8n + 2 tig, 8n + 2 tig + 1. Per staged block of MMA_BK keys ([key][KSTR]
-// bf16 in shared memory), S = Q K^T lands in mma accumulators, the softmax
+// 8n + 2 tig, 8n + 2 tig + 1. Per block of BK keys ([key][KSTR] bf16 in
+// shared memory; MMA_BK keys, or fewer where warps share a staged block's
+// keys), S = Q K^T lands in mma accumulators, the softmax
 // runs on them in fp32 (a row's scores spread over the 4 lanes of a quad),
 // and the probabilities, rounded to bf16, are reused in place as the A
 // operand of P V; a K fragment is one 32-bit read, a V fragment one
 // ldmatrix.trans. Q's fragments are held in registers at d <= 128; at
 // d = 256 they are read from shared memory per k-step (ldmatrix), since
 // holding them beside O's 128 accumulators would spill.
-template <int D, int KSTR>
+template <int D, int KSTR, int BK = MMA_BK>
 struct MmaRows {
-  static constexpr int KSTEPS = D / 16;    // k-steps of S = Q K^T
-  static constexpr int NT_S = MMA_BK / 8;  // 8-key tiles of S
-  static constexpr int NT_O = D / 8;       // 8-dim tiles of O
+  static constexpr int KSTEPS = D / 16;  // k-steps of S = Q K^T
+  static constexpr int NT_S = BK / 8;    // 8-key tiles of S
+  static constexpr int NT_O = D / 8;     // 8-dim tiles of O
   static constexpr bool Q_SMEM = D > 128;
-  static_assert(D % 16 == 0, "mma tile shape");
+  static_assert(D % 16 == 0 && BK % 16 == 0, "mma tile shape");
 
   uint32_t qa[Q_SMEM ? 1 : KSTEPS][4];
   const __nv_bfloat16* qrow;  // Q_SMEM: this lane's ldmatrix row
@@ -213,7 +214,7 @@ struct MmaRows {
     qrow = rows + (lane & 15) * stride + (lane >> 4) * 8;
   }
 
-  // keys [kb, kb + MMA_BK) staged at ks / vs; row a reads keys [lo_a,
+  // keys [kb, kb + BK) staged at ks / vs; row a reads keys [lo_a,
   // hi_a), row b [lo_b, hi_b); scores are scaled, capped, then masked
   __device__ __forceinline__ void block(const __nv_bfloat16* ks, const __nv_bfloat16* vs, int kb,
                                         int lo_a, int hi_a, int lo_b, int hi_b, float scale,
@@ -300,7 +301,7 @@ struct MmaRows {
     // O += P V: the S accumulators of key tiles 2k and 2k+1 are, rounded to
     // bf16, exactly the A fragment of key step k
 #pragma unroll
-    for (int k2 = 0; k2 < MMA_BK / 16; ++k2) {
+    for (int k2 = 0; k2 < BK / 16; ++k2) {
       const uint32_t pa[4] = {pack_bf16(s[2 * k2][0], s[2 * k2][1]),
                               pack_bf16(s[2 * k2][2], s[2 * k2][3]),
                               pack_bf16(s[2 * k2 + 1][0], s[2 * k2 + 1][1]),

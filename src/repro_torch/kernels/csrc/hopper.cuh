@@ -1,5 +1,6 @@
 // Hopper-only device helpers (sm_90a): mbarriers, TMA tensor loads, and the
-// warpgroup matrix products (wgmma) of the port's FlashAttention kernel.
+// warpgroup matrix products (wgmma) of the port's FlashAttention kernel (B4)
+// and of B1's chunk tiles.
 //
 // Shared-memory operands of wgmma are tiles in the 128-byte swizzle that TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B: a region of rows of 64 bf16 (128
@@ -134,6 +135,18 @@ __device__ __forceinline__ void fence_regs(float (&r)[R]) {
 __device__ __forceinline__ void fence_regs(uint32_t (&r)[4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// d[16] (+)= A (64 x 16, smem) * B (16 x 32, smem), both K-major
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // d[32] (+)= A (64 x 16, smem) * B (16 x 64, smem), both K-major

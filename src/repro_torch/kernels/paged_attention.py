@@ -7,12 +7,17 @@ of queries over its own paged KV prefix. On a CPU tensor it runs the plain
 version (``kernels.ref.mixed_attention_ref``); on a CUDA tensor it launches
 ``csrc/mixed_paged_attention.cu`` or raises — it never falls back.
 
-The CUDA kernel runs one CTA per (q-tile, KV head). A q-tile is up to
-``64 // G`` consecutive rows of one segment; the tile list is built from
-``cu_q_lens`` on the host (``q_tiles``) by the caller, once per step in the
-engine, so the 32 layers of a step reuse one device copy and a launch never
-waits on the device. ``mixed_paged_attention.launches`` counts kernel
-launches.
+The CUDA kernel works in q-tiles of up to ``64 // G`` consecutive rows of
+one segment; the tile list is built from ``cu_q_lens`` on the host
+(``q_tiles``) by the caller, once per step in the engine, so the 32 layers
+of a step reuse one device copy and a launch never waits on the device. A
+CTA takes one tile (fp32) or two consecutive tiles of a segment (bf16,
+``cta_rows``), and its keys in spans (``key_splits``: a decode row of L keys
+runs as about L / 256 CTAs); a plan pass on the card lists the work from the
+tiles and ``kv_lens``, and a combine pass sums the spans' partial outputs
+(their scratch laid out by the kernel's library: ``key_split_workspace``).
+One call is four launches (plan, a light and a heavy producer or the fp32
+one, combine), counted once by ``mixed_paged_attention.launches``.
 
 ``paged_attention`` (B2) is the port of the Pallas ``paged_attention``: one
 query per row, at position ``lengths[n] - 1``, over the pages its block
@@ -33,7 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -50,6 +55,8 @@ from repro_torch.kernels.decode_attention import (
 from repro_torch.kernels.ref import mixed_attention_ref, paged_attention_ref
 
 M_MAX = 64  # query vectors per CTA (csrc/mixed_paged_attention.cu)
+SPLIT_KEYS = 256  # B1: keys per split of a one-row tile (a multiple of 64)
+MAX_KEY_SPLITS = 64  # B1: the most splits a tile's keys are cut into
 
 
 def q_tile_rows(group: int) -> int:
@@ -100,18 +107,80 @@ def q_tiles(cu_q_lens: np.ndarray, group: int) -> np.ndarray:
     return np.asarray(tiles, np.int32).reshape(-1, 2)
 
 
+def key_splits(capacity: int):
+    """B1's split over keys for tables of ``capacity`` (nb * page) keys:
+    ``(n_split, span)``. A light CTA (at most 16 query vectors, as a decode
+    row) of r rows takes its live keys in spans of ``span * r``, so a decode
+    row of L keys runs as ceil(L / span) CTAs and a long row no longer
+    streams its context alone; the kernel's plan gives heavier CTAs (a
+    chunk's tiles) a span of its own, never shorter. ``span`` is
+    ``SPLIT_KEYS``, widened (in blocks of 64 keys) where the capacity would
+    need more than ``MAX_KEY_SPLITS`` spans. ``n_split`` is the most spans
+    any CTA can have."""
+    span = max(SPLIT_KEYS, -(-capacity // (64 * MAX_KEY_SPLITS)) * 64)
+    return max(1, -(-capacity // span)), span
+
+
+def cta_rows(dtype: torch.dtype, group: int) -> int:
+    """Rows of one segment a CTA of B1's kernel takes: two consecutive
+    q-tiles in bf16 (one staged key block serves up to 128 query vectors),
+    one in fp32."""
+    return q_tile_rows(group) * (2 if dtype == torch.bfloat16 else 1)
+
+
+class SplitScratch(NamedTuple):
+    """One B1 launch's scratch (``tensor``, fp32 elements) and where the
+    kernel's plan puts its parts, in elements from the start: the work list
+    (2 kinds x ``n_tiles * n_split`` int32 pairs (tile, split)) at 0, each
+    split CTA's first partial slot at ``tile_slot``, six int32 at ``counts``
+    (light items, heavy items, slots used, the two queues, the heavy CTAs'
+    span), the partial outputs at ``o_part`` and their (m, l) at
+    ``ml_part``."""
+    tensor: torch.Tensor
+    tile_slot: int
+    counts: int
+    o_part: int
+    ml_part: int
+
+
+@functools.lru_cache(maxsize=256)
+def _scratch_layout(n_tiles: int, KV: int, G: int, d: int, n_split: int, sms: int):
+    at = (ctypes.c_longlong * 4)()
+    total = _launcher()[2](n_tiles, KV, G, d, n_split, sms, at)
+    return total, tuple(at)
+
+
+def key_split_workspace(q: torch.Tensor, n_tiles: int, n_split: int, sms: int) -> SplitScratch:
+    """The scratch of one B1 launch on a card of ``sms`` SMs: its size and
+    layout come from the kernel's library (``scratch_layout`` in
+    ``csrc/mixed_paged_attention.cu``, beside the plan that bounds it), which
+    refuses a launch given less. On q's device; the card only."""
+    _, KV, G, d = q.shape
+    total, at = _scratch_layout(n_tiles, KV, G, d, n_split, sms)
+    return SplitScratch(torch.empty(total, dtype=torch.float32, device=q.device), *at)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.cache
 def _launcher():
-    """The kernel's C entry point, built and loaded on first use, with its
-    ctypes signature (every pointer and the stream as c_void_p)."""
+    """The kernel's C entry points, built and loaded on first use, with their
+    ctypes signatures (every pointer and the stream as c_void_p): the
+    launch, its error string and its scratch layout."""
     lib = _build.load("mixed_paged_attention")
     fn = lib.mixed_paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 \
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
+        + [ctypes.c_int] * 10 + [ctypes.c_float] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = lib.mixed_paged_attention_error_string
     err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
-    return fn, err
+    layout = lib.mixed_paged_attention_scratch_layout
+    layout.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+    layout.restype = ctypes.c_longlong
+    return fn, err, layout
 
 
 def _check(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables):
@@ -159,14 +228,24 @@ def mixed_paged_attention(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables,
     check_kernel_shape("mixed_paged_attention", q.dtype, d, G, M_MAX)
     qt = q_tile_rows(G)
     check_tiles(tiles, q, "q_tiles(cu_q_lens, G)")
+    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError("k/v pages must start 16-byte aligned (the kernel copies 16 bytes "
+                         "at a time)")
     out = torch.empty_like(q)
-    if tiles.shape[0] == 0:
+    n_tiles = tiles.shape[0]
+    if n_tiles == 0:
         return out
-    fn, err_string = _launcher()
+    page, nb = k_pages.shape[1], block_tables.shape[1]
+    n_split, span = key_splits(nb * page)
+    sms = _sm_count(q.device)
+    # the caller may drop the scratch once the launch is queued: PyTorch's
+    # caching allocator hands its memory only to work queued after it
+    scratch = key_split_workspace(q, n_tiles, n_split, sms).tensor
+    fn, err_string = _launcher()[:2]
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-             cu_q_lens.data_ptr(), kv_lens.data_ptr(), block_tables.data_ptr(),
-             tiles.data_ptr(), tiles.shape[0], KV, G, d, k_pages.shape[1],
-             block_tables.shape[1], qt, 1.0 / d**0.5,
+             scratch.data_ptr(), scratch.numel(), cu_q_lens.data_ptr(), kv_lens.data_ptr(),
+             block_tables.data_ptr(), tiles.data_ptr(), n_tiles, KV, G, d, page, nb, qt,
+             n_split, span, sms, 1.0 / d**0.5,
              0.0 if softcap is None else float(softcap),
              0 if window is None else int(window), DTYPE_CODES[q.dtype],
              torch.cuda.current_stream(q.device).cuda_stream)

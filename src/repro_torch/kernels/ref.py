@@ -168,6 +168,96 @@ def mixed_attention_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *
     return out.to(q.dtype)
 
 
+def mixed_split_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *, cta_rows: int,
+                    span_keys: int, window: Optional[int] = None,
+                    softcap: Optional[float] = None, rescale: bool = True):
+    """``mixed_attention_ref`` computed as B1's kernel splits it: each
+    segment's rows in groups of ``cta_rows`` (one CTA's rows), each group's
+    keys (from the window's left edge of its first row to its last row's
+    position) cut into spans of ``span_keys * rows`` keys, each span's
+    partial (O, m, l) taken alone, then combined:
+    O = sum_s e^(m_s - M) O_s / sum_s e^(m_s - M) l_s with M = max_s m_s.
+    ``rescale=False`` sums the partials without the e^(m_s - M) weights,
+    the fault a combine must not have. Same arguments and result as
+    ``mixed_attention_ref``."""
+    N, KV, G, d = q.shape
+    page = k_pages.shape[1]
+    out = torch.zeros((N, KV, G, d), dtype=torch.float32, device=q.device)
+    cu = cu_q_lens.tolist()
+    for s, kv_len in enumerate(kv_lens.tolist()):
+        r0, r1 = cu[s], cu[s + 1]
+        q_len = r1 - r0
+        if q_len == 0:
+            continue
+        n_pages = -(-kv_len // page)
+        tabs = block_tables[s, :n_pages].long()
+        kc = k_pages[tabs].reshape(n_pages * page, KV, d)[:kv_len].float()
+        vc = v_pages[tabs].reshape(n_pages * page, KV, d)[:kv_len].float()
+        for c0 in range(r0, r1, cta_rows):
+            nrow = min(cta_rows, r1 - c0)
+            pos0 = kv_len - q_len + (c0 - r0)
+            k_lo = 0 if window is None else max(0, pos0 - window + 1)
+            span = span_keys * nrow
+            q_pos = torch.arange(pos0, pos0 + nrow, device=q.device)[:, None]
+            qc = q[c0:c0 + nrow].float()
+            os_, ms, ls = [], [], []
+            for lo in range(k_lo, pos0 + nrow, span):
+                hi = min(pos0 + nrow, lo + span)
+                k_pos = torch.arange(lo, hi, device=q.device)[None, :]
+                ok = k_pos <= q_pos
+                if window is not None:
+                    ok &= k_pos > q_pos - window
+                sc = _softcap(torch.einsum("rkgd,skd->rkgs", qc, kc[lo:hi]) / d**0.5, softcap)
+                sc = torch.where(ok[:, None, None, :], sc, -torch.inf)
+                m = sc.amax(-1).clamp_min(NEG_INF)  # a row with no key here: NEG_INF
+                p = torch.exp(sc - m[..., None])
+                os_.append(torch.einsum("rkgs,skd->rkgd", p, vc[lo:hi]))
+                ms.append(m)
+                ls.append(p.sum(-1))
+            o, m, l = torch.stack(os_), torch.stack(ms), torch.stack(ls)
+            w = torch.exp(m - m.amax(0)) if rescale else torch.ones_like(m)
+            out[c0:c0 + nrow] = ((w[..., None] * o).sum(0)
+                                 / (w * l).sum(0).clamp_min(1e-37)[..., None])
+    return out.to(q.dtype)
+
+
+def mixed_split_plan(tiles, cu_q_lens, kv_lens, *, tile_rows: int, group: int, span_keys: int,
+                     pair: bool, light_max: int, n_kv: int, sms: int,
+                     window: Optional[int] = None):
+    """The plain version of B1's plan pass (``plan_rows``, ``plan_spans`` and
+    the plan kernel of ``csrc/mixed_paged_attention.cu``), on host lists:
+    which rows each CTA takes and its keys in spans. ``tiles`` are
+    ``q_tiles(cu_q_lens, group)`` of ``tile_rows`` rows; with ``pair`` a CTA
+    takes two consecutive tiles of a segment (bf16). A CTA of at most 16
+    query vectors takes spans of ``span_keys * rows`` keys; the heavier
+    ones split only when they are fewer than ``sms / (2 n_kv)``, into spans
+    of their keys' share of ``sms / n_kv`` CTAs, in blocks of 64. Returns
+    (ctas, heavy_span): one dict per CTA, in tile order, with its leading
+    ``tile``, ``seg``, ``row0``, ``nrow``, keys ``k_lo``..``k_hi``, query
+    vectors ``m_eff``, ``kind`` (0: light, at most ``light_max`` vectors;
+    1: heavy), ``step`` (keys per span) and ``spans`` [(lo, hi)]."""
+    cu = [int(x) for x in cu_q_lens]
+    ctas = []
+    for t, (seg, row0) in enumerate(tiles):
+        seg, row0 = int(seg), int(row0)
+        lo, hi = cu[seg], cu[seg + 1]
+        odd = ((row0 - lo) // tile_rows) % 2 if pair else 0
+        if odd:
+            continue
+        nrow = min(2 * tile_rows if pair else tile_rows, hi - row0)
+        pos0 = int(kv_lens[seg]) - (hi - lo) + (row0 - lo)
+        k_lo = 0 if window is None else max(0, pos0 - window + 1)
+        ctas.append(dict(tile=t, seg=seg, row0=row0, nrow=nrow, k_lo=k_lo, k_hi=pos0 + nrow,
+                         m_eff=nrow * group, kind=int(nrow * group > light_max)))
+    heavy = [c for c in ctas if c["m_eff"] > 16]
+    share = -(-sum(c["k_hi"] - c["k_lo"] for c in heavy) * n_kv // sms)
+    heavy_span = 1 << 30 if 2 * len(heavy) * n_kv >= sms else max(span_keys, -(-share // 64) * 64)
+    for c in ctas:
+        c["step"] = span_keys * c["nrow"] if c["m_eff"] <= 16 else heavy_span
+        c["spans"] = [(k, min(c["k_hi"], k + c["step"]))
+                      for k in range(c["k_lo"], c["k_hi"], c["step"])] or [(c["k_lo"], c["k_lo"])]
+    return ctas, heavy_span
+
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
     """Zero-pad axis 1 (the sequence) of ``t`` by ``pad`` rows, in fp32."""
