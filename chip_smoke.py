@@ -9,8 +9,8 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   device          card, power limit, torch/CUDA versions; TF32 off for fp32 checks
   build           nvcc builds every kernel of the port from src/repro_torch, one
                   process per source, all at once; ptxas's registers and spills
-                  of every instantiation (none of B1's, and none at head_dim
-                  256, may spill)
+                  of every instantiation (none of B1's or B5's, and none at
+                  head_dim 256, may spill)
   kernel_parity   each kernel against its plain PyTorch version on the card, with
                   NaN in every dead key, at the main paths' shapes (Llama3.1-8B
                   heads: KV 8, G 4, d 128), at gemma2-2b's (KV 4, G 2, d 256,
@@ -28,7 +28,10 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   decode_attention, B4 flash_attention; B5 ssd_chunk_scan at
                   Mamba2-2.7B's widths (100, 512 and 4096 tokens, the
                   overflow case), two groups and reduced widths, y and the
-                  final state held apart, dropping h0 or the carry rejected
+                  final state held apart; dropping h0 or the carry, a carry
+                  without the chunk's decay and a stale carried state (chunk
+                  c - 2's) rejected; the schedule the kernel's library makes
+                  against its Python copy
   reduced_serve   the paged engine at reduced width in fp32 on the card (kernel)
                   and on the CPU (plain version): the same greedy tokens
   engine_bf16     the engine in bf16 at Llama3.1-8B's attention heads, reduced
@@ -361,6 +364,47 @@ def library_call(torch, case):
     return call, rows
 
 
+def segment_library_calls(torch, case):
+    """``scaled_dot_product_attention`` once per segment, each over its own
+    keys only (K/V pre-gathered and expanded to the query heads; a boolean
+    mask where a chunk's rows see different keys), for cases whose padded
+    batch would hold every segment at the longest row's length. Returns one
+    call that runs them all in turn (its device time is their sum) and a map
+    of its outputs to packed rows."""
+    import torch.nn.functional as F
+
+    q, k_pages, v_pages = case["q"], case["k"], case["v"]
+    _, KV, G, d = q.shape
+    H = KV * G
+    page, w = case["page"], case["window"]
+    cu = case["cu"].tolist()
+    segs = []
+    for s, (ql, kl) in enumerate(case["segs"]):
+        n = -(-kl // page)
+        pages = case["tables"][s, :n].long()
+        kb = k_pages[pages].reshape(n * page, KV, d)[:kl].transpose(0, 1)[None]
+        vb = v_pages[pages].reshape(n * page, KV, d)[:kl].transpose(0, 1)[None]
+        qb = q[cu[s]:cu[s] + ql].reshape(ql, H, d).transpose(0, 1)[None].contiguous()
+        qp = torch.arange(kl - ql, kl, device="cuda")[:, None]
+        kp = torch.arange(kl, device="cuda")[None, :]
+        ok = kp <= qp
+        if w is not None:
+            ok &= kp > qp - w
+        mask = None if bool(ok.all()) else ok[None, None]
+        segs.append((qb, kb.repeat_interleave(G, 1).contiguous(),
+                     vb.repeat_interleave(G, 1).contiguous(), mask, ql))
+
+    def call():
+        return [F.scaled_dot_product_attention(qb, kb, vb, attn_mask=m)
+                for qb, kb, vb, m, _ in segs]
+
+    def rows(outs):
+        return torch.cat([o[0].transpose(0, 1).reshape(ql, KV, G, d)
+                          for o, (*_, ql) in zip(outs, segs)])
+
+    return call, rows
+
+
 def tol_used(got, plain, dtype):
     """The largest error over its allowance (at most 1 passes): fp32 |err| <=
     1e-4 (1 + |plain|); bf16 the tighter of 2e-2 (1 + |plain|) and 2^-7 |plain|
@@ -458,12 +502,13 @@ def plan_check(torch, made, q, k_pages, cu_q_lens, kv_lens, block_tables, tiles,
                 mixed=max(q_lens) > 1 and 1 in q_lens)
 
 
-def run_case(torch, name, case, split_fault=False, library=True):
+def run_case(torch, name, case, split_fault=False, library="padded"):
     """One B1 case: parity against the plain version (fp32, same inputs),
     the faults the check must reject (softcap or window dropped; with
     ``split_fault``, the partials combined without rescaling by their
-    maxima, as the kernel splits them), then times beside the bound and,
-    with ``library``, SDPA over the same segments."""
+    maxima, as the kernel splits them), then times beside the bound and
+    SDPA over the same segments: as one padded batch (``library="padded"``)
+    or one call a segment, summed (``"segments"``)."""
     from repro_torch.kernels.paged_attention import cta_rows, key_splits, mixed_paged_attention
     from repro_torch.kernels.ref import mixed_attention_ref, mixed_split_ref
 
@@ -499,18 +544,19 @@ def run_case(torch, name, case, split_fault=False, library=True):
     del faults  # fp32 copies of every row: free before the timed calls
     nbytes, flops = work(case)
     b, by = bound_of(nbytes, flops, dtype)
-    call, lib_err, lib_name = None, None, None
-    if library:
+    if library == "padded":
         call, rows = library_call(torch, case)
-        lib_err = float((rows(call()).float() - plain[:n]).abs().max())
         lib_name = ("torch.nn.functional.scaled_dot_product_attention (padded batch, "
                     "boolean mask, KV pre-gathered)")
+    else:
+        call, rows = segment_library_calls(torch, case)
+        lib_name = ("torch.nn.functional.scaled_dot_product_attention, one call a segment "
+                    "summed (KV pre-gathered; boolean mask for chunks)")
+    lib_err = float((rows(call()).float() - plain[:n]).abs().max())
     rec.update(
         **timings(torch, lambda: mixed_paged_attention(*args, **kw, tiles=case["tiles"]),
                   lambda: mixed_attention_ref(*args, **kw), call, reps=10),
-        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
-        library=lib_name or "none timed: the padded SDPA batch of this case would hold "
-                            "every segment at the longest row's length",
+        bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, library=lib_name,
         library_max_abs_err=lib_err)
     return finish(rec)
 
@@ -562,16 +608,18 @@ def kernel_parity(torch):
     windowed = [(1, int(c)) for c in np.linspace(8192, 32768, 8)] + [(256, 16384)]
     short = [(1, 1), (1, 17), (1, 64), (1, 65), (1, 200), (1, 300), (40, 300), (1, 32768)]
     split_cases = [
-        # Llama3.1's context: 4 decode rows up to 131072 keys (537 MB of K/V)
-        ("decode_long_bf16", 16, long_rows, dict(llama, dtype=bf16), False),
+        # Llama3.1's context: 4 decode rows up to 131072 keys (537 MB of
+        # K/V); SDPA a segment, since a padded batch would hold every
+        # segment at 131072 keys
+        ("decode_long_bf16", 16, long_rows, dict(llama, dtype=bf16), "segments"),
         # each row's 1024 window keys in 2 spans of 512; keys left of it never read
         ("split_window_bf16", 17, windowed, dict(llama, dtype=bf16, window=1024, softcap=3.0),
-         True),
+         "padded"),
         # the short rows' CTAs hold one span; the 32K row's 64
-        ("split_short_rows_bf16", 18, short, dict(llama, dtype=bf16), True),
-        ("split_short_rows_fp32", 19, short, dict(llama, dtype=f32), True),
+        ("split_short_rows_bf16", 18, short, dict(llama, dtype=bf16), "padded"),
+        ("split_short_rows_fp32", 19, short, dict(llama, dtype=f32), "padded"),
         ("page1_long_fp32", 20, [(1, 3000), (1, 700), (33, 600), (1, 1)],
-         dict(llama, page=1, dtype=f32), True),
+         dict(llama, page=1, dtype=f32), "padded"),
     ]
     recs = {}
     for name, seed, segs, kw in cases:
@@ -1082,8 +1130,25 @@ def ssd_rows(t):
     return t.reshape(t.shape[0] * t.shape[1], t.shape[2], t.shape[3], 1)
 
 
+def ssd_schedule_check(torch, case):
+    """The schedule the kernel's library makes for this case (grid, hd
+    columns an item, items a chunk, ring slots, chunks, scratch bytes)
+    against its Python copy, ``ref.ssd_chunk_schedule``."""
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.decode_attention import DTYPE_CODES
+    from repro_torch.kernels.ref import ssd_chunk_schedule
+
+    x, Bm = case["x"], case["Bm"]
+    B, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    card = ssd.schedule(B, S, nh, hd, G, ds, DTYPE_CODES[x.dtype], sms)
+    plain = ssd_chunk_schedule(B, S, nh, hd, G, ds, bf16=x.dtype == torch.bfloat16, sms=sms)
+    return dict(card, sms=sms, matches=all(card[k] == plain[k] for k in card))
+
+
 def run_ssd_case(torch, name, case):
-    from repro_torch.kernels.ref import SSD_CHUNK, ssd_chunk_ref
+    from repro_torch.kernels.ref import SSD_CHUNK, ssd_chunk_parallel_ref, ssd_chunk_ref
     from repro_torch.kernels.ssd import ssd_chunk_scan
 
     x = case["x"]
@@ -1093,13 +1158,23 @@ def run_ssd_case(torch, name, case):
     torch.cuda.synchronize()
     fargs = (x.float(), case["dt"], case["A"], case["Bm"].float(), case["Cm"].float())
     y_p, h_p = ssd_chunk_ref(*fargs, case["h0"])
-    # the check must see a kernel that dropped h0 or the carry between chunks
+    # the check must see a kernel that dropped h0 or the carry between
+    # chunks, that carried the predecessor's state without its decay, or
+    # that read chunk c - 2's end state in place of chunk c - 1's
     faults = {"no_h0": ssd_rows(ssd_chunk_ref(*fargs)[0]), "no_carry": ssd_rows(ssd_no_carry(case))}
+    for fault in ("no_chunk_decay", "stale_state"):
+        faults[fault] = ssd_rows(ssd_chunk_parallel_ref(*fargs, case["h0"], fault=fault)[0])
     B, S, nh, hd = x.shape
     G, ds = case["Bm"].shape[2], case["Bm"].shape[3]
     rec = parity_record(torch, name, "ssd_chunk_scan", dtype, ssd_rows(y), ssd_rows(y_p), faults,
                         dict(batch=B, seq=S, nh=nh, hd=hd, groups=G, ds=ds, h0=True,
                              kernel_chunk=SSD_CHUNK, strided_xbc=not x.is_contiguous()))
+    del faults
+    rec["schedule"] = ssd_schedule_check(torch, case)
+    # a second call on the same inputs reuses the scratch under the next
+    # epoch, with no reset between: it must give the same result
+    y2, h2 = ssd_chunk_scan(*args)
+    rec["repeat_equal"] = bool(torch.equal(y2, y) and torch.equal(h2, hT))
     # the final state is fp32 on both sides, from the same inputs
     h_used = tol_used(ssd_rows(hT), ssd_rows(h_p), "float32")
     cum = torch.cumsum(case["dt"] * case["A"], dim=1)
@@ -1109,7 +1184,8 @@ def run_ssd_case(torch, name, case):
                # the largest exponent the masked triangle would take: the
                # decay over a chunk of the strongest head
                above_diag_max_exponent=float(-(cum[:, L - 1] - cum[:, 0]).min()))
-    rec["ok"] = rec["ok"] and h_used <= 1 and rec["hT_finite"]
+    rec["ok"] = (rec["ok"] and h_used <= 1 and rec["hT_finite"] and rec["schedule"]["matches"]
+                 and rec["repeat_equal"])
     nbytes, flops = ssd_work(case)
     b, by = bound_of(nbytes, flops, dtype)
     rec.update(**timings(torch, lambda: ssd_chunk_scan(*args), lambda: ssd_chunk_ref(*args), None,
@@ -1939,11 +2015,12 @@ def main() -> int:
                spilling=[f["function"] for f in spills],
                d256_spilling=[f["function"] for f in spills if f["head_dim"] == 256],
                b1_spilling=[f["function"] for f in spills
-                            if "mixed_paged_attention" in f["function"]])
-    # every head-dim-256 instantiation, and every one of B1's, must keep its
-    # registers (a rebuilt library reports nothing: build_all skips a source
-    # that is up to date)
-    rec["ok"] = not rec["d256_spilling"] and not rec["b1_spilling"]
+                            if "mixed_paged_attention" in f["function"]],
+               b5_spilling=[f["function"] for f in spills if "ssd_chunk_scan" in f["function"]])
+    # every head-dim-256 instantiation, and every one of B1's and B5's, must
+    # keep its registers (a rebuilt library reports nothing: build_all skips
+    # a source that is up to date)
+    rec["ok"] = not rec["d256_spilling"] and not rec["b1_spilling"] and not rec["b5_spilling"]
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"build: instantiations spill: {rec}")
@@ -1993,7 +2070,7 @@ def main() -> int:
             ms=main_case["kernel_ms"], plain_ms=main_case["plain_ms"],
             bound_ms=main_case["bound_ms"], bound_by=main_case["bound_by"],
             library_ms=main_case["library_ms"], library=main_case["library"],
-            timing=main_case["timing"],
+            timing=main_case["timing"], kernel_parts=main_case["kernel_parts"],
             event_ms=main_case["kernel_event_ms"], host_us=main_case["kernel_host_us"],
             shape_case=cases[0], main_path=path["phase"],
             main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],

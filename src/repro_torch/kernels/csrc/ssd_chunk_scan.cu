@@ -1,81 +1,277 @@
 // Mamba2 SSD (state-space duality) chunk scan for Hopper (sm_90a).
 //
-// Replaces the TPU kernel `ssd_chunk_scan` (kernels/ssd.py:81, body
+// Replaces the TPU kernel `ssd_chunk_scan` (src/repro/kernels/ssd.py:81, body
 // `_ssd_kernel` :35; model-layout wrapper `ops.ssd`, kernels/ops.py:106) of
-// the JAX package. For each (batch, head) it walks the sequence in chunks of
-// L = 64 tokens, carrying the state h (hd x ds, fp32) from chunk to chunk:
+// the JAX package. The sequence is cut into chunks of L = 64 tokens; with
+// cum_i = sum_{t<=i} dt_t A within a chunk and h the state (hd x ds, fp32) at
+// the chunk's start:
 //
-//   cum_i = sum_{t<=i} dt_t A                     (within the chunk)
-//   y_i   = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
-//           + exp(cum_i) C_i . h                  (h at the chunk's start)
-//   h'    = exp(cum_L) h + sum_j exp(cum_L - cum_j) dt_j x_j^T B_j
+//   y_i  = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j + exp(cum_i) C_i . h
+//   h'   = d_c h + S_c,   d_c = exp(cum_L),   S_c = sum_j exp(cum_L - cum_j) dt_j x_j^T B_j
 //
-// and returns y and the final state hT. The TPU kernel walks chunks as the
-// sequential axis of its grid with h in VMEM scratch; here one CTA loops over
-// the chunks itself with h in shared memory.
-//
-// The decay exp(cum_i - cum_j) is evaluated only for j <= i. Above the
-// diagonal the exponent is positive and, with Mamba2-2.7B's own decay rates
-// (A down to -80, dt up to 0.1), overflows to inf; the TPU kernel masks it
-// with `where`, and a product with it would give NaN.
+// and the call returns y and the final state hT. The TPU kernel walks the
+// chunks as the sequential axis of its grid with h in VMEM scratch.
 //
 // What bounds it on an H100: the function reads x, B, C, dt and h0 once and
 // writes y and hT once; at a 512-token bf16 segment of Mamba2-2.7B that is
 // 16 MB (4.8 us at 3.35 TB/s) against about 1.5e9 operations (1.5 us at the
-// bf16 tensor rate), so bytes bound it. What holds the kernel back is the
-// sequence: each (batch, head) walks its chunks one after another.
-// The design:
-//   * one CTA per (32 columns of hd, head, batch): Mamba2-2.7B's 80 heads of
-//     hd 64 give 160 CTAs for one sequence, two resident per SM; each loops
-//     over the chunks with its slice of the state on chip;
-//   * per chunk, B, C and the CTA's x columns are staged in shared memory
-//     through the model's strides (x, B and C are column slices of the conv
-//     output: no copies), and warp 0 scans dt A into cum;
-//   * bf16 inputs (serving): the chunk's four products -- C B^T, W x, C h and
-//     the state update (x w)^T B -- run on the tensor cores (mma.sync), with
-//     W, h and x w split into two bf16 parts so the sums stay near fp32; the
-//     state lives in accumulator registers from chunk to chunk;
-//   * fp32 inputs (the exactness checks): the same steps on the CUDA cores,
-//     by 4 x 4 register tiles over operands staged as fp32;
-//   * a ragged last chunk is masked (dt = 0, x = B = C = 0 past the end),
-//     which leaves hT exact, and y is written only for live tokens.
-// Not yet: a pipelined load of the next chunk, sharing C B^T between the
-// heads of one group, chunks in parallel (a state-passing pass between two
-// chunk-parallel kernels) for long prompts.
+// bf16 tensor rate), so bytes bound it. What holds a kernel back is the
+// sequence: one CTA that walks a head's chunks one after another pays a
+// chain of dependent phases per chunk. Here the chunks run in parallel:
+//   * work items (chunk c, head, hs columns of hd) are taken from an atomic
+//     ticket in chunk-major order by a grid of at most CTAS_PER_SM CTAs an
+//     SM; a CTA takes its next ticket while it works on the current item;
+//   * an item first does all that needs no carried state: it stages the
+//     chunk (B, C and x by 16-byte cp.async; the next item's x and dt are
+//     prefetched into L2 meanwhile), every warp scans dt A into its own copy
+//     of cum, and it forms C B^T, W (in registers), the intra-chunk W x and
+//     the chunk's own contribution to the state S_c;
+//   * only then does each warp wait for the same warp's part of chunk c-1's
+//     end state (a flag with acquire semantics), load it (every load in
+//     flight at once), form its part of h_c = d_c h_{c-1} + S_c, store it and
+//     publish it (a flag with release semantics): the chain between chunks
+//     passes no CTA barrier and no shared memory. Then exp(cum_i) C_i .
+//     h_{c-1} is added to y. Chunk 0 starts from h0 (or zeros); the last
+//     chunk writes hT;
+//   * chunk-end states go through a ring of `ring` slots in a scratch that
+//     persists on the device (laid out and bounded by `schedule` below):
+//     one slot per chunk would write and read back nc x nh x hd x ds x 4
+//     bytes (168 MB at 4096 tokens); the ring, sized to the chunks in
+//     flight, stays in the 50 MB L2. A slot is overwritten only after the
+//     item that reads its previous tenant says so (`consumed`). Flags carry
+//     the call's epoch, so nothing is reset between calls: the last CTA to
+//     finish zeroes the ticket;
+//   * bf16 inputs (serving): the products (C B^T, W x, S_c, C h) run on the
+//     tensor cores (mma.sync m16n8k16), with W, x w and h split into two
+//     bf16 parts so the sums stay near fp32; fp32 inputs (the exactness
+//     checks) take the same items with the products on the CUDA cores;
+//   * the decay exp(cum_i - cum_j) is evaluated only for j <= i: above the
+//     diagonal the exponent is positive and, with Mamba2-2.7B's own decay
+//     rates (A down to -80, dt up to 0.1), overflows to inf (the TPU kernel
+//     masks it with `where`); a ragged last chunk is masked (dt = 0, x = B =
+//     C = 0 past the end), which leaves hT exact, and y is written only for
+//     live tokens.
+// An item is latency-bound (about 11 us on an idle card at Mamba2-2.7B's
+// widths: staging, the products, the carry's round trips through L2), and
+// the card holds two an SM, so at 512 tokens the items, not the chain,
+// set the time. Tried and dropped: two heads an item sharing C B^T (the
+// second head's carry waits behind the first's), staging the next item
+// into a second C buffer under this one's last step (slower at 512 tokens,
+// registers spill), one CTA an SM.
 //
 // Layouts: x (B, S, nh, hd), B and C (B, S, G, ds) with any element strides
 // of batch, token and head/group (last axis contiguous); dt (B, S, nh) fp32
-// with any strides; A (nh,) fp32; h0 and hT (B, nh, hd, ds) fp32 contiguous
-// (h0 may be null: zeros; hT may alias h0: each CTA reads its slice of h0
-// before it writes the same slice of hT); y (B, S, nh, hd) contiguous in x's
-// dtype.
+// with any strides; A (nh,) fp32; h0 and hT (B, nh, hd, ds) fp32 contiguous,
+// h0 may be null (zeros) and must not alias hT (another item may still read
+// h0 when the last chunk's item writes hT); y (B, S, nh, hd) contiguous in
+// x's dtype.
+#include <algorithm>
+
 #include "attention_common.cuh"
 
 namespace {
 
 using namespace attn;
 
-constexpr int NT = 256;      // threads per CTA
-constexpr int L = 64;        // tokens per chunk
-constexpr int HS = 32;       // columns of hd per CTA
-constexpr int DS_MAX = 128;  // largest state width
-constexpr int XP = HS + 1;   // padded row of the staged x
-constexpr int WP = L + 1;    // padded row of W
+constexpr int NT = 256;          // threads per CTA
+constexpr int L = 64;            // tokens per chunk
+constexpr int DS_MAX = 128;      // largest state width
+constexpr int CTAS_PER_SM = 2;   // both kernels' launch bounds
+constexpr int HS_MMA = 64;       // hd columns of a bf16 item
+constexpr int HS_F32 = 32;       // hd columns of an fp32 item
+constexpr int WARPS = NT / 32;   // a warp carries its own part of the state
 
-size_t smem_bytes(int ds) {
-  const int dp = ds + 1;
-  return sizeof(float) * (2 * L * dp + HS * dp + L * XP + L * WP + 3 * L);
+// ---------------------------------------------------------------------------
+// The schedule: items, tickets and the ring
+// ---------------------------------------------------------------------------
+//
+// Item t (a ticket) is chunk c = t / ipc, and u = t % ipc names its batch,
+// head block and column slice; item (c, u) reads the end state of item
+// (c - 1, u), whose ticket is smaller by ipc. Tickets are taken in order by
+// running CTAs, and an item waits only on items with smaller tickets, which
+// running CTAs hold or have finished: by induction from the smallest ticket
+// not yet done, every wait ends, whatever the grid and however many CTAs the
+// card holds at once. The ring: chunk c's end state goes to slot c % ring
+// (the last chunk's to hT), and the item that writes slot c % ring waits
+// until chunk c - ring's state has been read by item (c - ring + 1, u),
+// whose ticket is smaller still. ring >= 2 whenever a slot is reused, so no
+// item waits on itself; ring = nc - 1 (no reuse) when the chunks are few,
+// else the chunks a full grid holds at once plus two. The Python copy of
+// this schedule is `ssd_chunk_schedule` in src/repro_torch/kernels/ref.py.
+struct Schedule {
+  int nc, hs, slices, ipc, grid, ring;
+  long long n_items;
+  long long ready, consumed, states, total;  // byte offsets in the scratch, its size
+};
+
+Schedule schedule(int batch, int seq, int nh, int groups, int hd, int ds, int dtype, int sms) {
+  Schedule s;
+  s.nc = (seq + L - 1) / L;
+  s.hs = dtype == 1 ? HS_MMA : HS_F32;
+  s.slices = (hd + s.hs - 1) / s.hs;
+  s.ipc = batch * nh * s.slices;
+  s.n_items = (long long)s.nc * s.ipc;
+  s.grid = (int)std::min<long long>(s.n_items, (long long)CTAS_PER_SM * sms);
+  s.ring = s.nc < 2 ? 0 : std::min(s.nc - 1, std::max(2, (s.grid + s.ipc - 1) / s.ipc + 2));
+  // the scratch: the ticket and the count of finished CTAs (2 x u32), then
+  // the ready flags (u64, one per slot, item and warp) and the consumed
+  // flags (one per slot and item), then the states (fp32, hs x DS_MAX per
+  // slot and item, in the order the warps hold them), 16-byte aligned
+  const long long slots = (long long)s.ring * s.ipc;
+  s.ready = 16;
+  s.consumed = s.ready + 8 * slots * WARPS;
+  s.states = (s.consumed + 8 * slots + 15) / 16 * 16;
+  s.total = s.states + 4 * slots * s.hs * DS_MAX;
+  return s;
 }
 
-// Warp 0 of a CTA: dt of the chunk's tokens [t0, t0 + n) (0 past them) into
-// dts and the inclusive cumulative log-decay sum dt A into cum, two tokens
-// a lane, by a shuffle scan.
-__device__ __forceinline__ void scan_chunk(const float* dtb, long long dt_ss, int t0, int n,
-                                           float a_h, int lane, float* cum, float* dts) {
+struct Args {
+  const void* x;
+  const float* dt;
+  const float* A;
+  const void* bm;
+  const void* cm;
+  const float* h0;
+  void* y;
+  float* hT;
+  int batch, seq, nh, hd, rep, ds;
+  long long x_sb, x_ss, x_sh, bc_sb, bc_ss, bc_sg, dt_sb, dt_ss, dt_sh;
+  int nc, hs, slices, ipc, ring, n_items;
+  unsigned long long epoch;  // the call's epoch << 32: a flag's value is epoch | chunk
+  unsigned* counters;        // [0] the ticket, [1] CTAs finished
+  unsigned long long* ready;
+  unsigned long long* consumed;
+  float* states;
+};
+
+struct Item {
+  int c, u, b, h, d0, nd, t0, n;
+};
+
+__device__ __forceinline__ Item item_of(const Args& a, int t) {
+  Item it;
+  it.c = t / a.ipc;
+  it.u = t % a.ipc;
+  const int slice = it.u % a.slices, rest = it.u / a.slices;
+  it.b = rest / a.nh;
+  it.h = rest % a.nh;
+  it.d0 = slice * a.hs;
+  it.nd = min(a.hs, a.hd - it.d0);
+  it.t0 = it.c * L;
+  it.n = min(L, a.seq - it.t0);
+  return it;
+}
+
+// Thread 0 takes the CTA's next ticket; -1 when none is left. The last CTA
+// to find none zeroes the counters for the next call. A CTA takes its next
+// ticket while it works on the current item (s_tk[2], alternating), which
+// the schedule's argument allows: that item's ticket is the larger.
+__device__ __forceinline__ int take_ticket(const Args& a) {
+  const unsigned t = atomicAdd(a.counters, 1u);
+  if (t < (unsigned)a.n_items) return int(t);
+  __threadfence();
+  if (atomicAdd(a.counters + 1, 1u) == gridDim.x - 1) {
+    a.counters[0] = 0;
+    a.counters[1] = 0;
+  }
+  return -1;
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v) : "memory");
+}
+
+// A wait ends within the call (see the schedule above); one that has not
+// after 2^26 polls (seconds) means a broken flag, and traps rather than hang.
+__device__ __forceinline__ void spin(const unsigned long long* p, unsigned long long want) {
+  for (unsigned polls = 0; ld_acquire(p) != want; __nanosleep(32))
+    if (++polls == (1u << 26)) __trap();
+}
+
+// chunk c's slot of item u: its index among the flags
+__device__ __forceinline__ long long slot_of(const Args& a, int c, int u) {
+  return (long long)(c % a.ring) * a.ipc + u;
+}
+
+// Lane 0 of each warp, before the warp forms its part of item `it`'s end
+// state: chunk c - 1's same warp has published its part, and the slot this
+// chunk writes has been read.
+__device__ __forceinline__ void wait_carry(const Args& a, const Item& it, int warp) {
+  if (it.c > 0)
+    spin(a.ready + slot_of(a, it.c - 1, it.u) * WARPS + warp, a.epoch | unsigned(it.c - 1));
+  if (it.c < a.nc - 1 && it.c >= a.ring)
+    spin(a.consumed + slot_of(a, it.c, it.u), a.epoch | unsigned(it.c - a.ring));
+}
+
+// Lane 0 of a warp, after __syncwarp follows the warp's stores of its part
+// of the end state: publish it. The warp barrier orders the lanes' stores
+// before lane 0's release, which is cumulative, so a reader that acquires
+// the flag (and then passes its own warp barrier) sees every one.
+__device__ __forceinline__ void publish_ready(const Args& a, const Item& it, int warp) {
+  if (it.c < a.nc - 1)
+    st_release(a.ready + slot_of(a, it.c, it.u) * WARPS + warp, a.epoch | unsigned(it.c));
+}
+
+// Thread 0, after a barrier that follows every warp's loads of the start
+// state: its slot may be written again.
+__device__ __forceinline__ void publish_consumed(const Args& a, const Item& it) {
+  if (it.c > 0) st_release(a.consumed + slot_of(a, it.c - 1, it.u), a.epoch | unsigned(it.c - 1));
+}
+
+// A ring slot, in the order the warps hold the state: thread (w, l)'s j-th
+// fp32 pair (bf16) or value (fp32) at [(w * J + j) * 32 + l], so that a warp
+// moves 32 consecutive elements an instruction.
+__device__ __forceinline__ float* ring_slot(const Args& a, int c, int u) {
+  return a.states + slot_of(a, c, u) * a.hs * DS_MAX;
+}
+
+// Item `it`'s rows of h0 (element [r * ds + kk] of its columns), or null;
+// and of hT.
+__device__ __forceinline__ const float* h0_rows(const Args& a, const Item& it) {
+  if (a.h0 == nullptr) return nullptr;
+  return a.h0 + (((long long)it.b * a.nh + it.h) * a.hd + it.d0) * a.ds;
+}
+
+__device__ __forceinline__ float* hT_rows(const Args& a, const Item& it) {
+  return a.hT + (((long long)it.b * a.nh + it.h) * a.hd + it.d0) * a.ds;
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
+// Threads 0 .. 2 L - 1: the first line of each bf16 row of x (tid < L) and
+// each dt (tid >= L) of item `it`, into L2, while the CTA works on the one
+// before.
+__device__ __forceinline__ void prefetch_item(const Args& a, const Item& it) {
+  const int row = threadIdx.x % L;
+  if (threadIdx.x >= 2 * L || row >= it.n) return;
+  if (threadIdx.x < L)
+    prefetch_l2(static_cast<const __nv_bfloat16*>(a.x) + it.b * a.x_sb + it.h * a.x_sh + it.d0 +
+                (long long)(it.t0 + row) * a.x_ss);
+  else
+    prefetch_l2(a.dt + it.b * a.dt_sb + it.h * a.dt_sh + (long long)(it.t0 + row) * a.dt_ss);
+}
+
+// dt of the chunk's tokens 2 lane and 2 lane + 1 (0 past the sequence)
+__device__ __forceinline__ float2 load_dt(const Args& a, const Item& it, int h, int lane) {
+  const float* p = a.dt + it.b * a.dt_sb + h * a.dt_sh + (long long)it.t0 * a.dt_ss;
   const int t = 2 * lane;
-  const float dt0 = t < n ? dtb[(long long)(t0 + t) * dt_ss] : 0.f;
-  const float dt1 = t + 1 < n ? dtb[(long long)(t0 + t + 1) * dt_ss] : 0.f;
-  const float s0 = dt0 * a_h, s1 = s0 + dt1 * a_h;
+  return make_float2(t < it.n ? p[t * a.dt_ss] : 0.f, t + 1 < it.n ? p[(t + 1) * a.dt_ss] : 0.f);
+}
+
+// One warp: the inclusive cumulative log-decay cum of dt A over the chunk,
+// dt itself and w_j = exp(cum_L - cum_j) dt_j into cum, dts and wj (L each),
+// two tokens a lane, by a shuffle scan.
+__device__ __forceinline__ void scan_chunk(float2 dt, float a_h, int lane, float* cum, float* dts,
+                                           float* wj) {
+  const float s0 = dt.x * a_h, s1 = s0 + dt.y * a_h;
   float incl = s1;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
@@ -84,70 +280,71 @@ __device__ __forceinline__ void scan_chunk(const float* dtb, long long dt_ss, in
   }
   float excl = __shfl_up_sync(0xffffffffu, incl, 1);
   if (lane == 0) excl = 0.f;
+  const float total = __shfl_sync(0xffffffffu, incl, 31);
+  const int t = 2 * lane;
   cum[t] = excl + s0;
   cum[t + 1] = incl;
-  dts[t] = dt0;
-  dts[t + 1] = dt1;
+  dts[t] = dt.x;
+  dts[t + 1] = dt.y;
+  wj[t] = expf(total - (excl + s0)) * dt.x;
+  wj[t + 1] = expf(total - incl) * dt.y;
 }
 
 // ---------------------------------------------------------------------------
-// fp32: the products on the CUDA cores
+// fp32: the products on the CUDA cores (exactness checks; right, not fast)
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(NT, 2) ssd_chunk_scan_f32_kernel(
-    const float* __restrict__ x, const float* __restrict__ dt, const float* __restrict__ A,
-    const float* __restrict__ bm, const float* __restrict__ cm, const float* h0,
-    float* __restrict__ y, float* hT, int seq, int nh, int hd, int rep, int ds, long long x_sb,
-    long long x_ss, long long x_sh, long long bc_sb, long long bc_ss, long long bc_sg,
-    long long dt_sb, long long dt_ss, long long dt_sh) {
-  extern __shared__ __align__(16) float smem[];
+constexpr int HS = HS_F32;
+constexpr int XP = HS + 1;  // padded row of the staged x
+constexpr int WP = L + 1;   // padded row of W
+
+size_t f32_smem_bytes(int ds) {
   const int dp = ds + 1;
+  return sizeof(float) * (2 * L * dp + HS * dp + L * XP + L * WP + 3 * L);
+}
+
+__global__ void __launch_bounds__(NT, CTAS_PER_SM) ssd_chunk_scan_f32_kernel(const Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int s_tk[2];
+  const int ds = a.ds, dp = ds + 1;
   float* bs = smem;          // [L][dp]  B of the chunk
   float* cs = bs + L * dp;   // [L][dp]  C of the chunk
-  float* hs = cs + L * dp;   // [HS][dp] the state's rows d0 .. d0 + HS
+  float* hs = cs + L * dp;   // [HS][dp] the start state's rows d0 .. d0 + HS
   float* xs = hs + HS * dp;  // [L][XP]  x's columns d0 .. d0 + HS
   float* ws = xs + L * XP;   // [L][WP]  intra-chunk weights
   float* cum = ws + L * WP;  // [L]
   float* dts = cum + L;      // [L]
   float* wj = dts + L;       // [L]      exp(cum_L - cum_j) dt_j
-
   const int tid = threadIdx.x;
-  const int d0 = blockIdx.x * HS, h = blockIdx.y, b = blockIdx.z;
-  const int nd = min(HS, hd - d0);  // live columns of this CTA
-  const float a_h = A[h];
-  const float* xb = x + b * x_sb + h * x_sh + d0;
-  const float* bb = bm + b * bc_sb + (h / rep) * bc_sg;
-  const float* cb = cm + b * bc_sb + (h / rep) * bc_sg;
-  const float* dtb = dt + b * dt_sb + h * dt_sh;
-  const long long state = ((long long)b * nh + h) * hd + d0;  // first state row
+  const float* xg = static_cast<const float*>(a.x);
+  const float* bg = static_cast<const float*>(a.bm);
+  const float* cg = static_cast<const float*>(a.cm);
+  float* yg = static_cast<float*>(a.y);
 
-  for (int e = tid; e < HS * ds; e += NT) {
-    const int r = e / ds, k = e % ds;
-    hs[r * dp + k] = (h0 != nullptr && r < nd) ? h0[(state + r) * ds + k] : 0.f;
-  }
-
-  for (int t0 = 0; t0 < seq; t0 += L) {
-    const int n = min(L, seq - t0);  // live tokens of the chunk
-    __syncthreads();  // the previous chunk is done with the staged operands
+  if (tid == 0) s_tk[0] = take_ticket(a);
+  __syncthreads();
+  for (int t = s_tk[0], iter = 0; t >= 0; ++iter) {
+    if (tid == 0) s_tk[(iter + 1) & 1] = take_ticket(a);
+    const Item it = item_of(a, t);
+    const int h = it.h, n = it.n, nd = it.nd;
+    const float* xb = xg + it.b * a.x_sb + h * a.x_sh + it.d0 + (long long)it.t0 * a.x_ss;
+    const long long bc = it.b * a.bc_sb + (h / a.rep) * a.bc_sg + (long long)it.t0 * a.bc_ss;
     // 1. stage the chunk; nothing past the sequence is read
     for (int e = tid; e < L * ds; e += NT) {
       const int t = e / ds, k = e % ds;
       const bool live = t < n;
-      const long long off = (long long)(t0 + t) * bc_ss + k;
-      bs[t * dp + k] = live ? bb[off] : 0.f;
-      cs[t * dp + k] = live ? cb[off] : 0.f;
+      bs[t * dp + k] = live ? bg[bc + (long long)t * a.bc_ss + k] : 0.f;
+      cs[t * dp + k] = live ? cg[bc + (long long)t * a.bc_ss + k] : 0.f;
     }
     for (int e = tid; e < L * HS; e += NT) {
       const int t = e / HS, d = e % HS;
-      xs[t * XP + d] = (t < n && d < nd) ? xb[(long long)(t0 + t) * x_ss + d] : 0.f;
+      xs[t * XP + d] = (t < n && d < nd) ? xb[(long long)t * a.x_ss + d] : 0.f;
     }
-    if (tid < 32) scan_chunk(dtb, dt_ss, t0, n, a_h, tid, cum, dts);
+    if (tid < 32) scan_chunk(load_dt(a, it, h, tid), a.A[h], tid, cum, dts, wj);
     __syncthreads();
-    const float total = cum[L - 1];
-    if (tid < L) wj[tid] = expf(total - cum[tid]) * dts[tid];
+    const int t_next = s_tk[(iter + 1) & 1];
 
-    // 2. W[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i, else 0;
-    //    rows ti + 16 r, columns tj + 16 c
+    // 2. W[i][j] = (C_i . B_j) exp(cum_i - cum_j) dt_j for j <= i, else 0
     {
       const int ti = tid / 16, tj = tid % 16;
       float acc[4][4] = {};
@@ -172,7 +369,55 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_scan_f32_kernel(
     }
     __syncthreads();
 
-    // 3. y_i = W_i . x + exp(cum_i) C_i . h: column d, rows i0 + 8 r
+    // 3. S_c = sum_j wj_j x_j^T B_j: rows r0 + 8 r, columns kc + 32 c
+    const int kc = tid % 32, r0 = tid / 32;
+    float acc[4][4] = {};
+    for (int j = 0; j < L; ++j) {
+      const float w = wj[j];
+      float xw[4], bv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) xw[r] = xs[j * XP + r0 + 8 * r] * w;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) bv[c] = kc + 32 * c < ds ? bs[j * dp + kc + 32 * c] : 0.f;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xw[r], bv[c], acc[r][c]);
+    }
+
+    // 4. the carry, warp by warp (warp r0 holds state rows r0 + 8 r): h_c =
+    //    d_c h_{c-1} + S_c, the start state kept for step 5
+    if (kc == 0) wait_carry(a, it, r0);
+    __syncwarp();
+    {
+      const float decay = expf(cum[L - 1]);
+      const int at = r0 * 16 * 32 + kc;  // this thread's first element in a ring slot
+      const float* in = it.c > 0 ? ring_slot(a, it.c - 1, it.u) + at : nullptr;
+      float* out = it.c < a.nc - 1 ? ring_slot(a, it.c, it.u) + at : nullptr;
+      const float* h0r = h0_rows(a, it);
+      float* hTr = hT_rows(a, it);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int d = r0 + 8 * r, k = kc + 32 * c, j = 4 * r + c;
+          const bool live = d < nd && k < ds;
+          const float hp = in != nullptr ? __ldcg(in + j * 32)
+                                         : (h0r != nullptr && live ? h0r[d * ds + k] : 0.f);
+          const float hv = decay * hp + acc[r][c];
+          if (out != nullptr)
+            out[j * 32] = hv;
+          else if (live)
+            hTr[d * ds + k] = hv;
+          if (k < ds) hs[d * dp + k] = hp;
+        }
+    }
+    __syncwarp();
+    if (kc == 0) publish_ready(a, it, r0);
+    __syncthreads();
+    if (tid == 0) publish_consumed(a, it);
+
+    // 5. y_i = W_i . x + exp(cum_i) C_i . h_{c-1}: column d, rows i0 + 8 r
     {
       const int d = tid % 32, i0 = tid / 32;
       float intra[8] = {}, inter[8] = {};
@@ -191,375 +436,401 @@ __global__ void __launch_bounds__(NT, 2) ssd_chunk_scan_f32_kernel(
         for (int r = 0; r < 8; ++r) {
           const int i = i0 + 8 * r;
           if (i < n)
-            y[(((long long)b * seq + t0 + i) * nh + h) * hd + d0 + d] =
+            yg[(((long long)it.b * a.seq + it.t0 + i) * a.nh + h) * a.hd + it.d0 + d] =
                 intra[r] + expf(cum[i]) * inter[r];
         }
       }
     }
-    __syncthreads();  // step 4 overwrites the state step 3 read
-
-    // 4. h' = exp(cum_L) h + sum_j wj_j x_j^T B_j: rows r0 + 8 r, columns kc + 32 c
-    {
-      const float decay = expf(total);
-      const int kc = tid % 32, r0 = tid / 32;
-      float acc[4][4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = kc + 32 * c;
-          acc[r][c] = k < ds ? hs[(r0 + 8 * r) * dp + k] * decay : 0.f;
-        }
-      for (int j = 0; j < L; ++j) {
-        const float w = wj[j];
-        float xw[4], bv[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) xw[r] = xs[j * XP + r0 + 8 * r] * w;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = kc + 32 * c;
-          bv[c] = k < ds ? bs[j * dp + k] : 0.f;
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(xw[r], bv[c], acc[r][c]);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int k = kc + 32 * c;
-          if (k < ds) hs[(r0 + 8 * r) * dp + k] = acc[r][c];
-        }
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < nd * ds; e += NT) {
-    const int r = e / ds, k = e % ds;
-    hT[(state + r) * ds + k] = hs[r * dp + k];
+    __syncthreads();  // the next item restages every operand
+    t = t_next;
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the four products of a chunk on the tensor cores
+// bf16: the products on the tensor cores
 // ---------------------------------------------------------------------------
 //
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate), 8 warps. x, B and C are
-// exact in bf16; W, the state h and x_j w_j are not, so each is split into
+// exact in bf16; W, x_j w_j and the state h are not, so each is split into
 // a bf16 high part and the bf16 rounding of the rest and enters two
 // products: the sums keep about 16 bits more than one bf16 rounding would.
-// The CTA's slice of the state (32 x ds) lives in the G4 accumulators of
-// its threads for the whole scan; a bf16 hi/lo copy in shared memory feeds
-// the next chunk's C h. Every operand is staged with its reduction axis
-// contiguous, so an A fragment is one 32-bit read; where the reduction runs
-// over tokens (W x, the state update) the B or A fragment pairs two 16-bit
-// reads. Rows are padded by 8 bf16 so the fragment reads hit 32 banks.
+// Only B, C, x and the start state pass through shared memory: W is formed
+// in the registers that computed C B^T (accumulator tiles are A fragments),
+// x_j w_j is formed from x's fragments as they are loaded, and the state's
+// B fragments are split as they are read. Fragments of staged bf16 come by
+// ldmatrix, transposed where the reduction runs over the staged rows (W x,
+// S_c); rows are padded by 8 bf16 so a matrix's eight rows hit distinct
+// banks. A warp's tiles: C B^T and W rows 16 (w / 2) + [0, 16), all columns
+// up to the diagonal; y the same rows, columns 32 (w % 2) + [0, 32) of the
+// item's 64; S_c and the state rows 16 (w % 4) + [0, 16), columns 64 (w /
+// 4) + [0, 64).
 
-constexpr int DSP = 128;     // staged state dims (a multiple of 16, >= ds)
-constexpr int CS = DSP + 8;  // row of the staged B, C and the state copy [.][k]
-constexpr int XS = HS + 8;   // row of the staged x and x w [t][d]
-constexpr int WS = L + 8;    // row of W [i][j]
+constexpr int DSP = 128;        // staged state dims (a multiple of 16, >= ds)
+constexpr int CS = DSP + 8;     // row of the staged B and C [t][k]
+constexpr int XS = HS_MMA + 8;  // row of the staged x [t][d]
+constexpr int HFP = DSP + 8;    // row of the staged fp32 start state [d][k]
 
 constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (2 * L * CS + 3 * L * XS + 2 * L * WS + 2 * HS * CS) +
-         sizeof(float) * 2 * L;
+  return sizeof(__nv_bfloat16) * (2 * L * CS + L * XS) +
+         sizeof(float) * (HS_MMA * HFP + 3 * (NT / 32) * L);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// Four 8x8 bf16 matrices from shared memory (ldmatrix): lanes 8 m .. 8 m + 7
+// give the addresses of matrix m's rows; with TRANS each is transposed. A
+// row-major 16 x 16 A tile at (r, k): lane l names row r + a_row(l), column
+// k + a_col(l). A pair of B tiles (n and n + 8) stored [n][k]: row n +
+// b_row(l), column k + b_col(l); stored [k][n], transposed: row k + a_row(l),
+// column n + a_col(l). An A tile stored [k][m], transposed: row k + b_row(l),
+// column m + b_col(l).
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
 }
 
-// two bf16 along a column (p[0] and p[stride]) as one fragment register
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, int stride) {
-  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
-  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + stride);
-  return lo | (hi << 16);
-}
+__device__ __forceinline__ int a_row(int lane) { return lane & 15; }
+__device__ __forceinline__ int a_col(int lane) { return (lane >> 4) * 8; }
+__device__ __forceinline__ int b_row(int lane) { return (lane & 7) + ((lane >> 4) << 3); }
+__device__ __forceinline__ int b_col(int lane) { return ((lane >> 3) & 1) * 8; }
 
-// v = hi + lo with hi = bf16(v) and lo = bf16(v - hi), written as bf16 pairs
-__device__ __forceinline__ void store_split(__nv_bfloat16* hi, __nv_bfloat16* lo, float v0,
-                                            float v1) {
+// (v0, v1) = hi + lo with hi = bf16(v) and lo = bf16(v - hi), as bf16 pairs
+__device__ __forceinline__ void split_pair(float v0, float v1, uint32_t& hi, uint32_t& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  *reinterpret_cast<__nv_bfloat162*>(hi) = h;
-  *reinterpret_cast<__nv_bfloat162*>(lo) =
-      __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
-__global__ void __launch_bounds__(NT, 2) ssd_chunk_scan_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
-    const float* __restrict__ A, const __nv_bfloat16* __restrict__ bm,
-    const __nv_bfloat16* __restrict__ cm, const float* h0, __nv_bfloat16* __restrict__ y,
-    float* hT, int seq, int nh, int hd, int rep, int ds, long long x_sb, long long x_ss,
-    long long x_sh, long long bc_sb, long long bc_ss, long long bc_sg, long long dt_sb,
-    long long dt_ss, long long dt_sh) {
+// a bf16 pair scaled by (w0, w1) in fp32, then split
+__device__ __forceinline__ void scale_split(uint32_t v, float w0, float w1, uint32_t& hi,
+                                            uint32_t& lo) {
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  split_pair(__low2float(b) * w0, __high2float(b) * w1, hi, lo);
+}
+
+__global__ void __launch_bounds__(NT, CTAS_PER_SM) ssd_chunk_scan_mma_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char mma_smem[];
+  __shared__ int s_tk[2];
   __nv_bfloat16* cs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [L][CS]  C
   __nv_bfloat16* bs = cs + L * CS;                                  // [L][CS]  B
   __nv_bfloat16* xs = bs + L * CS;                                  // [L][XS]  x
-  __nv_bfloat16* xw_hi = xs + L * XS;                               // [L][XS]  x_j w_j
-  __nv_bfloat16* xw_lo = xw_hi + L * XS;
-  __nv_bfloat16* w_hi = xw_lo + L * XS;                             // [L][WS]  W
-  __nv_bfloat16* w_lo = w_hi + L * WS;
-  __nv_bfloat16* h_hi = w_lo + L * WS;                              // [HS][CS] state
-  __nv_bfloat16* h_lo = h_hi + HS * CS;
-  float* cum = reinterpret_cast<float*>(h_lo + HS * CS);            // [L]
-  float* dts = cum + L;                                             // [L]
-
+  float* hf = reinterpret_cast<float*>(xs + L * XS);                // [HS_MMA][HFP] state
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane / 4, tig = lane % 4;  // mma groupID / thread-in-group
-  const int d0 = blockIdx.x * HS, h = blockIdx.y, b = blockIdx.z;
-  const int nd = min(HS, hd - d0);
+  float* cum = hf + HS_MMA * HFP + warp * 3 * L;  // this warp's copy
+  float* dts = cum + L;
+  float* wj = dts + L;
+  const int ds = a.ds;
   const int ksteps = (ds + 15) / 16;  // 16-wide steps over the state dims
-  const float a_h = A[h];
-  const __nv_bfloat16* xb = x + b * x_sb + h * x_sh + d0;
-  const __nv_bfloat16* bb = bm + b * bc_sb + (h / rep) * bc_sg;
-  const __nv_bfloat16* cb = cm + b * bc_sb + (h / rep) * bc_sg;
-  const float* dtb = dt + b * dt_sb + h * dt_sh;
-  const long long state = ((long long)b * nh + h) * hd + d0;
+  const __nv_bfloat16* xg = static_cast<const __nv_bfloat16*>(a.x);
+  const __nv_bfloat16* bg = static_cast<const __nv_bfloat16*>(a.bm);
+  const __nv_bfloat16* cg = static_cast<const __nv_bfloat16*>(a.cm);
+  __nv_bfloat16* yg = static_cast<__nv_bfloat16*>(a.y);
+  const int rb = warp >> 1, ch = warp & 1, r0 = 16 * rb + gid;  // W and y tiles
+  const int hr = 16 * (warp & 3), hc = 64 * (warp >> 2);         // S_c and state tiles
 
-  // G4's tile: state rows hr + {gid, gid + 8}, columns hc + 8 n + 2 tig (+1)
-  const int hr = 16 * (warp & 1), hc = 32 * (warp >> 1);
-  float hacc[4][4];
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = hr + gid + 8 * (e >> 1), k = hc + 8 * n + 2 * tig + (e & 1);
-      hacc[n][e] = (h0 != nullptr && d < nd && k < ds) ? h0[(state + d) * ds + k] : 0.f;
-    }
-  auto store_state = [&]() {
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; e += 2) {
-        const int d = hr + gid + 8 * (e >> 1), k = hc + 8 * n + 2 * tig;
-        store_split(h_hi + d * CS + k, h_lo + d * CS + k, hacc[n][e], hacc[n][e + 1]);
-      }
-  };
-  store_state();
-
-  for (int t0 = 0; t0 < seq; t0 += L) {
-    const int n = min(L, seq - t0);
-    __syncthreads();  // the previous chunk is done with every staged operand
+  if (tid == 0) s_tk[0] = take_ticket(a);
+  __syncthreads();
+  for (int t = s_tk[0], iter = 0; t >= 0; ++iter) {
+    if (tid == 0) s_tk[(iter + 1) & 1] = take_ticket(a);
+    const Item it = item_of(a, t);
+    const int h = it.h, n = it.n, nd = it.nd;
     // 1. stage B, C (state dims past ds zero) and x (columns past nd zero)
     //    by cp.async; rows past the sequence are zero-filled, never read
-    const int kpad = 16 * ksteps;
-    for (int e = tid; e < L * (kpad / 8); e += NT) {  // 16-byte copies
-      const int t = e / (kpad / 8), k = 8 * (e % (kpad / 8));
-      const bool ok = t < n && k < ds;
-      const long long off = ok ? (long long)(t0 + t) * bc_ss + k : 0;
-      cp_async16(bs + t * CS + k, bb + off, ok);
-      cp_async16(cs + t * CS + k, cb + off, ok);
+    {
+      const long long bc = it.b * a.bc_sb + (h / a.rep) * a.bc_sg + (long long)it.t0 * a.bc_ss;
+      const int kpad = 16 * ksteps;
+      for (int e = tid; e < L * (kpad / 8); e += NT) {  // 16-byte copies
+        const int t = e / (kpad / 8), k = 8 * (e % (kpad / 8));
+        const bool ok = t < n && k < ds;
+        const long long off = ok ? bc + (long long)t * a.bc_ss + k : 0;
+        cp_async16(bs + t * CS + k, bg + off, ok);
+        cp_async16(cs + t * CS + k, cg + off, ok);
+      }
+      const __nv_bfloat16* xb =
+          xg + it.b * a.x_sb + h * a.x_sh + it.d0 + (long long)it.t0 * a.x_ss;
+      for (int e = tid; e < L * (HS_MMA / 8); e += NT) {
+        const int t = e / (HS_MMA / 8), d = 8 * (e % (HS_MMA / 8));
+        const bool ok = t < n && d < nd;
+        cp_async16(xs + t * XS + d, xb + (ok ? (long long)t * a.x_ss + d : 0), ok);
+      }
+      cp_async_commit();
     }
-    for (int e = tid; e < L * (HS / 8); e += NT) {
-      const int t = e / (HS / 8), d = 8 * (e % (HS / 8));
-      const bool ok = t < n && d < nd;
-      cp_async16(xs + t * XS + d, xb + (ok ? (long long)(t0 + t) * x_ss + d : 0), ok);
-    }
-    cp_async_commit();
-    if (warp == 0) scan_chunk(dtb, dt_ss, t0, n, a_h, lane, cum, dts);
+    scan_chunk(load_dt(a, it, h, lane), a.A[h], lane, cum, dts, wj);
     cp_async_wait<0>();
     __syncthreads();
-    const float total = cum[L - 1];
+    const int t_next = s_tk[(iter + 1) & 1];
+    if (t_next >= 0) prefetch_item(a, item_of(a, t_next));
 
-    // 2a. G1: W = mask(C B^T . exp(cum_i - cum_j) . dt_j), rows 16 rb + ...,
-    //     columns 32 ch + 8 nt + ...; tiles wholly above the diagonal skipped
-    {
-      const int rb = warp >> 1, ch = warp & 1;
-      const int r0 = 16 * rb + gid;
-      float acc[4][4] = {};
-      for (int ks = 0; ks < ksteps; ++ks) {
-        const int k0 = 16 * ks + 2 * tig;
-        const uint32_t a[4] = {ld32(cs + r0 * CS + k0), ld32(cs + (r0 + 8) * CS + k0),
-                               ld32(cs + r0 * CS + k0 + 8), ld32(cs + (r0 + 8) * CS + k0 + 8)};
+    // 2. C B^T, rows 16 rb + ..., columns 8 nt + ... up to the diagonal block
+    float cb[8][4] = {};
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t af[4];
+      ldsm4<false>(af, cs + (16 * rb + a_row(lane)) * CS + 16 * ks + a_col(lane));
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (32 * ch + 8 * nt > 16 * rb + 15) continue;
-          const __nv_bfloat16* brow = bs + (32 * ch + 8 * nt + gid) * CS + k0;
-          mma_bf16(acc[nt], a, ld32(brow), ld32(brow + 8));
-        }
+      for (int np = 0; np < 4; ++np) {
+        if (np > rb) break;
+        uint32_t bf[4];
+        ldsm4<false>(bf, bs + (16 * np + b_row(lane)) * CS + 16 * ks + b_col(lane));
+        mma_bf16(cb[2 * np], af, bf[0], bf[1]);
+        mma_bf16(cb[2 * np + 1], af, bf[2], bf[3]);
       }
+    }
+
+    // 3. y = W x with W = mask(C B^T . exp(cum_i - cum_j) . dt_j), formed
+    //    and split in registers, one 16-column step of j at a time
+    float yacc[4][4] = {};
+    const float cum_r[2] = {cum[r0], cum[r0 + 8]};
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int j = 32 * ch + 8 * nt + 2 * tig;
-        if (32 * ch + 8 * nt > 16 * rb + 15) continue;  // never read by G2
+    for (int ks = 0; ks < 4; ++ks) {
+      if (ks > rb) break;  // W is zero right of the diagonal block
+      uint32_t whi[4], wlo[4];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {  // n-tile 2 ks + q gives A registers q * 2 + half
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          const int i = r0 + 8 * half;
+          const int i = r0 + 8 * half, j = 16 * ks + 8 * q + 2 * tig;
           float w[2];
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            w[c] = j + c <= i ? acc[nt][2 * half + c] * expf(cum[i] - cum[j + c]) * dts[j + c]
-                              : 0.f;
-          store_split(w_hi + i * WS + j, w_lo + i * WS + j, w[0], w[1]);
+            w[c] = j + c <= i
+                       ? cb[2 * ks + q][2 * half + c] * __expf(cum_r[half] - cum[j + c]) * dts[j + c]
+                       : 0.f;
+          split_pair(w[0], w[1], whi[2 * q + half], wlo[2 * q + half]);
         }
       }
+#pragma unroll
+      for (int np = 0; np < 2; ++np) {
+        uint32_t bf[4];
+        ldsm4<true>(bf, xs + (16 * ks + a_row(lane)) * XS + 32 * ch + 16 * np + a_col(lane));
+        mma_bf16(yacc[2 * np], whi, bf[0], bf[1]);
+        mma_bf16(yacc[2 * np], wlo, bf[0], bf[1]);
+        mma_bf16(yacc[2 * np + 1], whi, bf[2], bf[3]);
+        mma_bf16(yacc[2 * np + 1], wlo, bf[2], bf[3]);
+      }
     }
-    // 2b. x_j w_j with w_j = exp(cum_L - cum_j) dt_j, for the state update
-    for (int e = tid; e < L * (HS / 2); e += NT) {
-      const int t = e / (HS / 2), d = 2 * (e % (HS / 2));
-      const float wt = expf(total - cum[t]) * dts[t];
-      const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(xs + t * XS + d);
-      store_split(xw_hi + t * XS + d, xw_lo + t * XS + d, __low2float(xv) * wt,
-                  __high2float(xv) * wt);
-    }
-    __syncthreads();
 
-    // 3. G2 + G3: y = W x + exp(cum_i) C h for rows 16 rb + ..., columns
-    //    16 dh + 8 nt + ...
+    // 4. S_c = (x w)^T B: state rows hr + ..., columns hc + 8 nt + ...; the
+    //    A fragments are x's, scaled by w_j and split as they are loaded
+    float sacc[8][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < L / 16; ++ks) {
+      uint32_t xr[4], ahi[4], alo[4];
+      ldsm4<true>(xr, xs + (16 * ks + b_row(lane)) * XS + hr + b_col(lane));
+      const int tk = 16 * ks + 2 * tig;
+      scale_split(xr[0], wj[tk], wj[tk + 1], ahi[0], alo[0]);
+      scale_split(xr[1], wj[tk], wj[tk + 1], ahi[1], alo[1]);
+      scale_split(xr[2], wj[tk + 8], wj[tk + 9], ahi[2], alo[2]);
+      scale_split(xr[3], wj[tk + 8], wj[tk + 9], ahi[3], alo[3]);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        if (hc + 16 * np >= 16 * ksteps) continue;  // state dims past ds stay zero
+        uint32_t bf[4];
+        ldsm4<true>(bf, bs + (16 * ks + a_row(lane)) * CS + hc + 16 * np + a_col(lane));
+        mma_bf16(sacc[2 * np], ahi, bf[0], bf[1]);
+        mma_bf16(sacc[2 * np], alo, bf[0], bf[1]);
+        mma_bf16(sacc[2 * np + 1], ahi, bf[2], bf[3]);
+        mma_bf16(sacc[2 * np + 1], alo, bf[2], bf[3]);
+      }
+    }
+
+    // 5. the carry, warp by warp: wait for the same warp of chunk c - 1,
+    //    load its part of the end state (every load in flight at once),
+    //    h_c = d_c h_{c-1} + S_c, publish; the start state goes to shared
+    //    memory for step 6
+    if (lane == 0) wait_carry(a, it, warp);
+    __syncwarp();
     {
-      const int rb = warp >> 1, dh = warp & 1;
-      const int r0 = 16 * rb + gid;
-      float intra[2][4] = {}, inter[2][4] = {};
-      for (int ks = 0; ks <= rb; ++ks) {  // W is zero right of the diagonal block
-        const int k0 = 16 * ks + 2 * tig;
-        const uint32_t ahi[4] = {ld32(w_hi + r0 * WS + k0), ld32(w_hi + (r0 + 8) * WS + k0),
-                                 ld32(w_hi + r0 * WS + k0 + 8),
-                                 ld32(w_hi + (r0 + 8) * WS + k0 + 8)};
-        const uint32_t alo[4] = {ld32(w_lo + r0 * WS + k0), ld32(w_lo + (r0 + 8) * WS + k0),
-                                 ld32(w_lo + r0 * WS + k0 + 8),
-                                 ld32(w_lo + (r0 + 8) * WS + k0 + 8)};
+      const float decay = expf(cum[L - 1]);
+      const int at = warp * 16 * 64 + 2 * lane;  // this thread's first pair in a ring slot
+      const float* in = it.c > 0 ? ring_slot(a, it.c - 1, it.u) + at : nullptr;
+      float* out = it.c < a.nc - 1 ? ring_slot(a, it.c, it.u) + at : nullptr;
+      const float* h0r = h0_rows(a, it);
+      float* hTr = hT_rows(a, it);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const __nv_bfloat16* xcol = xs + k0 * XS + 16 * dh + 8 * nt + gid;
-          const uint32_t b0 = ld_pair(xcol, XS), b1 = ld_pair(xcol + 8 * XS, XS);
-          mma_bf16(intra[nt], ahi, b0, b1);
-          mma_bf16(intra[nt], alo, b0, b1);
+      for (int part = 0; part < 2; ++part) {  // 8 pairs in flight at a time
+        float2 hp[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {  // pair j = 8 part + q: n-tile j / 2, rows + 8 (j % 2)
+          const int j = 8 * part + q;
+          const int d = hr + gid + 8 * (j & 1), kk = hc + 8 * (j >> 1) + 2 * tig;
+          if (in != nullptr)
+            hp[q] = __ldcg(reinterpret_cast<const float2*>(in + j * 64));
+          else if (h0r != nullptr && d < nd && kk < ds)  // h0: any alignment
+            hp[q] = make_float2(h0r[d * ds + kk], h0r[d * ds + kk + 1]);
+          else
+            hp[q] = make_float2(0.f, 0.f);
         }
-      }
-      for (int ks = 0; ks < ksteps; ++ks) {
-        const int k0 = 16 * ks + 2 * tig;
-        const uint32_t a[4] = {ld32(cs + r0 * CS + k0), ld32(cs + (r0 + 8) * CS + k0),
-                               ld32(cs + r0 * CS + k0 + 8), ld32(cs + (r0 + 8) * CS + k0 + 8)};
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int d = 16 * dh + 8 * nt + gid;
-          mma_bf16(inter[nt], a, ld32(h_hi + d * CS + k0), ld32(h_hi + d * CS + k0 + 8));
-          mma_bf16(inter[nt], a, ld32(h_lo + d * CS + k0), ld32(h_lo + d * CS + k0 + 8));
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int d = 16 * dh + 8 * nt + 2 * tig;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = r0 + 8 * (e >> 1), dd = d + (e & 1);
-          if (i < n && dd < nd)
-            y[(((long long)b * seq + t0 + i) * nh + h) * hd + d0 + dd] =
-                __float2bfloat16(intra[nt][e] + expf(cum[i]) * inter[nt][e]);
+        for (int q = 0; q < 8; ++q) {
+          const int j = 8 * part + q, nt = j >> 1, half = j & 1;
+          const int d = hr + gid + 8 * half, kk = hc + 8 * nt + 2 * tig;
+          const float2 hv = make_float2(decay * hp[q].x + sacc[nt][2 * half],
+                                        decay * hp[q].y + sacc[nt][2 * half + 1]);
+          if (out != nullptr)
+            *reinterpret_cast<float2*>(out + j * 64) = hv;
+          else if (d < nd && kk < ds)
+            *reinterpret_cast<float2*>(hTr + d * ds + kk) = hv;
+          *reinterpret_cast<float2*>(hf + d * HFP + kk) = hp[q];
         }
       }
     }
-    // 4. G4: h' = exp(cum_L) h + (x w)^T B, in the accumulators
-    {
-      const float decay = expf(total);
+    __syncwarp();
+    if (lane == 0) publish_ready(a, it, warp);
+    __syncthreads();  // every warp's part of the start state is in
+
+    // 6. y += exp(cum_i) C h_{c-1}, the tiles of step 3 (the state's B
+    //    fragments split as they are read)
+    float inter[4][4] = {};
+    for (int ks = 0; ks < ksteps; ++ks) {
+      uint32_t af[4];
+      ldsm4<false>(af, cs + (16 * rb + a_row(lane)) * CS + 16 * ks + a_col(lane));
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) hacc[nt][e] *= decay;
-#pragma unroll
-      for (int ks = 0; ks < L / 16; ++ks) {
-        const int k0 = 16 * ks + 2 * tig;
-        const int dr = hr + gid;
-        const uint32_t ahi[4] = {ld_pair(xw_hi + k0 * XS + dr, XS),
-                                 ld_pair(xw_hi + k0 * XS + dr + 8, XS),
-                                 ld_pair(xw_hi + (k0 + 8) * XS + dr, XS),
-                                 ld_pair(xw_hi + (k0 + 8) * XS + dr + 8, XS)};
-        const uint32_t alo[4] = {ld_pair(xw_lo + k0 * XS + dr, XS),
-                                 ld_pair(xw_lo + k0 * XS + dr + 8, XS),
-                                 ld_pair(xw_lo + (k0 + 8) * XS + dr, XS),
-                                 ld_pair(xw_lo + (k0 + 8) * XS + dr + 8, XS)};
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          if (hc + 8 * nt >= 16 * ksteps) continue;  // state dims past ds stay zero
-          const __nv_bfloat16* bcol = bs + k0 * CS + hc + 8 * nt + gid;
-          const uint32_t b0 = ld_pair(bcol, CS), b1 = ld_pair(bcol + 8 * CS, CS);
-          mma_bf16(hacc[nt], ahi, b0, b1);
-          mma_bf16(hacc[nt], alo, b0, b1);
-        }
+      for (int nt = 0; nt < 4; ++nt) {
+        const float* hrow = hf + (32 * ch + 8 * nt + gid) * HFP + 16 * ks + 2 * tig;
+        const float2 v0 = *reinterpret_cast<const float2*>(hrow);
+        const float2 v1 = *reinterpret_cast<const float2*>(hrow + 8);
+        uint32_t hi[2], lo[2];
+        split_pair(v0.x, v0.y, hi[0], lo[0]);
+        split_pair(v1.x, v1.y, hi[1], lo[1]);
+        mma_bf16(inter[nt], af, hi[0], hi[1]);
+        mma_bf16(inter[nt], af, lo[0], lo[1]);
       }
     }
-    __syncthreads();  // every warp's G3 has read the state the copy below replaces
-    store_state();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = r0 + 8 * half;
+      if (i >= n) continue;
+      const float decay_i = __expf(cum_r[half]);
+      __nv_bfloat16* yrow = yg + (((long long)it.b * a.seq + it.t0 + i) * a.nh + h) * a.hd + it.d0;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int d = 32 * ch + 8 * nt + 2 * tig;
+        if (d < nd)
+          *reinterpret_cast<__nv_bfloat162*>(yrow + d) = __floats2bfloat162_rn(
+              yacc[nt][2 * half] + decay_i * inter[nt][2 * half],
+              yacc[nt][2 * half + 1] + decay_i * inter[nt][2 * half + 1]);
+      }
+    }
+    __syncthreads();  // the next item restages every operand
+    // the slot this item read may be written again (its fence overlaps the
+    // next item's copies)
+    if (tid == 0) publish_consumed(a, it);
+    t = t_next;
   }
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = hr + gid + 8 * (e >> 1), k = hc + 8 * nt + 2 * tig + (e & 1);
-      if (d < nd && k < ds) hT[(state + d) * ds + k] = hacc[nt][e];
-    }
 }
 
-cudaError_t launch_mma(const void* x, const float* dt, const float* A, const void* bm,
-                       const void* cm, const float* h0, void* y, float* hT, int batch, int seq,
-                       int nh, int hd, int groups, int ds, long long x_sb, long long x_ss,
-                       long long x_sh, long long bc_sb, long long bc_ss, long long bc_sg,
-                       long long dt_sb, long long dt_ss, long long dt_sh, cudaStream_t stream) {
-  static bool opted_in = false;
-  const cudaError_t err = opt_in_smem(ssd_chunk_scan_mma_kernel, mma_smem_bytes(), opted_in);
-  if (err != cudaSuccess) return err;
-  // the 16-byte staging copies need 8-element multiples and 16-byte bases
-  const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  if (ds % 8 || hd % 8 || x_sb % 8 || x_ss % 8 || x_sh % 8 || bc_sb % 8 || bc_ss % 8 ||
-      bc_sg % 8 || !al(x) || !al(bm) || !al(cm))
-    return cudaErrorInvalidValue;
-  const dim3 grid((hd + HS - 1) / HS, nh, batch);
-  ssd_chunk_scan_mma_kernel<<<grid, NT, mma_smem_bytes(), stream>>>(
-      static_cast<const __nv_bfloat16*>(x), dt, A, static_cast<const __nv_bfloat16*>(bm),
-      static_cast<const __nv_bfloat16*>(cm), h0, static_cast<__nv_bfloat16*>(y), hT, seq, nh, hd,
-      nh / groups, ds, x_sb, x_ss, x_sh, bc_sb, bc_ss, bc_sg, dt_sb, dt_ss, dt_sh);
+cudaError_t launch(const Args& a, int dtype, int grid, cudaStream_t stream) {
+  if (dtype == 1) {
+    static bool opted_in = false;
+    const cudaError_t err = opt_in_smem(ssd_chunk_scan_mma_kernel, mma_smem_bytes(), opted_in);
+    if (err != cudaSuccess) return err;
+    ssd_chunk_scan_mma_kernel<<<grid, NT, mma_smem_bytes(), stream>>>(a);
+  } else {
+    static bool opted_in = false;
+    const cudaError_t err = opt_in_smem(ssd_chunk_scan_f32_kernel, f32_smem_bytes(DS_MAX),
+                                        opted_in);  // once, for the largest state
+    if (err != cudaSuccess) return err;
+    ssd_chunk_scan_f32_kernel<<<grid, NT, f32_smem_bytes(a.ds), stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const void* x, const float* dt, const float* A, const void* bm,
-                       const void* cm, const float* h0, void* y, float* hT, int batch, int seq,
-                       int nh, int hd, int groups, int ds, long long x_sb, long long x_ss,
-                       long long x_sh, long long bc_sb, long long bc_ss, long long bc_sg,
-                       long long dt_sb, long long dt_ss, long long dt_sh, cudaStream_t stream) {
-  static bool opted_in = false;
-  const size_t smem = smem_bytes(DS_MAX);  // opt in once, for the largest state
-  auto kernel = ssd_chunk_scan_f32_kernel;
-  cudaError_t err = opt_in_smem(kernel, smem, opted_in);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((hd + HS - 1) / HS, nh, batch);
-  kernel<<<grid, NT, smem_bytes(ds), stream>>>(
-      static_cast<const float*>(x), dt, A, static_cast<const float*>(bm),
-      static_cast<const float*>(cm), h0, static_cast<float*>(y), hT, seq, nh, hd, nh / groups,
-      ds, x_sb, x_ss, x_sh, bc_sb, bc_ss, bc_sg, dt_sb, dt_ss, dt_sh);
-  return cudaGetLastError();
+bool valid_shape(int batch, int seq, int nh, int hd, int groups, int ds, int dtype, int sms) {
+  if (batch < 1 || seq < 1 || nh < 1 || hd < 1 || groups < 1 || nh % groups || ds < 1 ||
+      ds > DS_MAX || sms < 1 || (dtype != 0 && dtype != 1))
+    return false;
+  const Schedule s = schedule(batch, seq, nh, groups, hd, ds, dtype, sms);
+  return s.n_items < (1LL << 31) - NT * sms && s.nc < (1 << 30);
 }
 
 }  // namespace
 
+// The schedule of one call on a card of `sms` SMs, as `schedule` makes it:
+// out = {grid, hd columns an item, items a chunk, ring slots, chunks, scratch
+// bytes}. Returns the cudaError_t (0 = success).
+extern "C" int ssd_chunk_scan_scratch_layout(int batch, int seq, int nh, int hd, int groups, int ds,
+                                             int dtype, int sms, long long* out) {
+  if (!valid_shape(batch, seq, nh, hd, groups, ds, dtype, sms)) return int(cudaErrorInvalidValue);
+  const Schedule s = schedule(batch, seq, nh, groups, hd, ds, dtype, sms);
+  const long long v[6] = {s.grid, s.hs, s.ipc, s.ring, s.nc, s.total};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
 // x: (B, S, nh, hd) with element strides x_sb, x_ss, x_sh; B and C: (B, S, G,
 // ds) sharing strides bc_sb, bc_ss, bc_sg; last axes contiguous. dt: (B, S,
 // nh) fp32, strides dt_sb, dt_ss, dt_sh. A: (nh,) fp32. h0 (or null) and hT:
-// (B, nh, hd, ds) fp32 contiguous. y: (B, S, nh, hd) contiguous. dtype: 0 =
-// float32, 1 = bfloat16 (x, B, C and y). Returns the cudaError_t of the
-// launch (0 = success).
+// (B, nh, hd, ds) fp32 contiguous, not aliased. y: (B, S, nh, hd) contiguous.
+// scratch: at least the layout's bytes, zeroed when first made and used by
+// one call at a time; epoch: 1 + the number of calls it has served since
+// (below 2^32). dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). One launch.
+// Returns the cudaError_t of the launch (0 = success).
 extern "C" int ssd_chunk_scan_launch(const void* x, const void* dt, const void* A, const void* bm,
                                      const void* cm, const void* h0, void* y, void* hT, int batch,
                                      int seq, int nh, int hd, int groups, int ds, long long x_sb,
                                      long long x_ss, long long x_sh, long long bc_sb,
                                      long long bc_ss, long long bc_sg, long long dt_sb,
-                                     long long dt_ss, long long dt_sh, int dtype, void* stream) {
-  if (batch < 1 || seq < 1 || nh < 1 || hd < 1 || groups < 1 || nh % groups || ds < 1 ||
-      ds > DS_MAX)
+                                     long long dt_ss, long long dt_sh, void* scratch,
+                                     long long scratch_bytes, unsigned epoch, int sms, int dtype,
+                                     void* stream) {
+  if (!valid_shape(batch, seq, nh, hd, groups, ds, dtype, sms) || epoch == 0)
     return int(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* dtf = static_cast<const float*>(dt);
-  const float* af = static_cast<const float*>(A);
-  const float* h0f = static_cast<const float*>(h0);
-  float* hTf = static_cast<float*>(hT);
-  if (dtype == 0)
-    return int(launch_f32(x, dtf, af, bm, cm, h0f, y, hTf, batch, seq, nh, hd, groups, ds, x_sb,
-                          x_ss, x_sh, bc_sb, bc_ss, bc_sg, dt_sb, dt_ss, dt_sh, s));
-  if (dtype == 1)
-    return int(launch_mma(x, dtf, af, bm, cm, h0f, y, hTf, batch, seq, nh, hd, groups, ds, x_sb,
-                          x_ss, x_sh, bc_sb, bc_ss, bc_sg, dt_sb, dt_ss, dt_sh, s));
-  return int(cudaErrorInvalidValue);
+  const Schedule s = schedule(batch, seq, nh, groups, hd, ds, dtype, sms);
+  if (scratch == nullptr || scratch_bytes < s.total ||
+      reinterpret_cast<uintptr_t>(scratch) % 16)
+    return int(cudaErrorInvalidValue);
+  if (dtype == 1) {
+    // the 16-byte staging copies need 8-element multiples and 16-byte bases
+    const auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    if (ds % 8 || hd % 8 || x_sb % 8 || x_ss % 8 || x_sh % 8 || bc_sb % 8 || bc_ss % 8 ||
+        bc_sg % 8 || !al(x) || !al(bm) || !al(cm))
+      return int(cudaErrorInvalidValue);
+  }
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  Args a;
+  a.x = x;
+  a.dt = static_cast<const float*>(dt);
+  a.A = static_cast<const float*>(A);
+  a.bm = bm;
+  a.cm = cm;
+  a.h0 = static_cast<const float*>(h0);
+  a.y = y;
+  a.hT = static_cast<float*>(hT);
+  a.batch = batch;
+  a.seq = seq;
+  a.nh = nh;
+  a.hd = hd;
+  a.rep = nh / groups;
+  a.ds = ds;
+  a.x_sb = x_sb;
+  a.x_ss = x_ss;
+  a.x_sh = x_sh;
+  a.bc_sb = bc_sb;
+  a.bc_ss = bc_ss;
+  a.bc_sg = bc_sg;
+  a.dt_sb = dt_sb;
+  a.dt_ss = dt_ss;
+  a.dt_sh = dt_sh;
+  a.nc = s.nc;
+  a.hs = s.hs;
+  a.slices = s.slices;
+  a.ipc = s.ipc;
+  a.ring = s.ring;
+  a.n_items = int(s.n_items);
+  a.epoch = (unsigned long long)epoch << 32;
+  a.counters = reinterpret_cast<unsigned*>(base);
+  a.ready = reinterpret_cast<unsigned long long*>(base + s.ready);
+  a.consumed = reinterpret_cast<unsigned long long*>(base + s.consumed);
+  a.states = reinterpret_cast<float*>(base + s.states);
+  return int(launch(a, dtype, s.grid, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* ssd_chunk_scan_error_string(int err) {

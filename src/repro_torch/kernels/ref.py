@@ -320,6 +320,99 @@ def ssd_chunk_ref(x, dt, A, Bm, Cm, h0=None, *, chunk: int = SSD_CHUNK):
     return y.reshape(Bsz, nc * L, nh, hd)[:, :S].to(x.dtype), h
 
 
+SSD_CTAS_PER_SM = 2  # B5's grid: at most this many CTAs an SM (its launch bounds)
+SSD_WARPS = 8  # B5's warps a CTA, each carrying its own part of the state
+SSD_DS_MAX = 128  # B5's widest state
+SSD_FAULTS = ("no_chunk_decay", "stale_state")
+
+
+def ssd_chunk_schedule(batch, seq, nh, hd, groups, ds, *, bf16, sms):
+    """Python copy of B5's schedule (``schedule`` in
+    ``src/repro_torch/kernels/csrc/ssd_chunk_scan.cu``), used by tests only.
+
+    Work items are (chunk, head, ``hs`` columns of hd); ticket t is chunk
+    ``t // ipc`` and item ``t % ipc`` of it (``ssd_item``), so chunk c's
+    predecessor item comes ``ipc`` tickets earlier. The grid holds at most
+    ``SSD_CTAS_PER_SM`` CTAs an SM. Chunk c's end state goes to ring slot
+    ``c % ring`` (the last chunk's to hT); the ring is ``nc - 1`` slots when
+    the chunks are few, else the chunks a full grid holds at once plus two.
+    ``nbytes``: the scratch (two counters, the ready flags of each slot's
+    ``SSD_WARPS`` warps, its consumed flag, its fp32 states at the widest
+    state). ``groups`` and ``ds`` do not enter: an item is one head."""
+    nc = -(-seq // SSD_CHUNK)
+    hs = 64 if bf16 else 32
+    slices = -(-hd // hs)
+    ipc = batch * nh * slices
+    grid = min(nc * ipc, SSD_CTAS_PER_SM * sms)
+    ring = 0 if nc < 2 else min(nc - 1, max(2, -(-grid // ipc) + 2))
+    slots = ring * ipc
+    states = -(-(16 + 8 * slots * SSD_WARPS + 8 * slots) // 16) * 16
+    return dict(grid=grid, hs=hs, ipc=ipc, ring=ring, nc=nc,
+                nbytes=states + 4 * slots * hs * SSD_DS_MAX, slices=slices, n_items=nc * ipc)
+
+
+def ssd_item(t, sched, nh):
+    """Ticket ``t`` of a schedule: (chunk, batch, head, first hd column)."""
+    c, u = divmod(t, sched["ipc"])
+    rest, sl = divmod(u, sched["slices"])
+    b, h = divmod(rest, nh)
+    return c, b, h, sl * sched["hs"]
+
+
+def ssd_compose(first, then):
+    """The affine state maps h -> d h + S of two consecutive spans, first
+    then ``then``, as one: (d_b d_a, d_b S_a + S_b). d: (..., nh), S: (...,
+    nh, hd, ds)."""
+    (da, Sa), (db, Sb) = first, then
+    return db * da, db[..., None, None] * Sa + Sb
+
+
+def ssd_chunk_parallel_ref(x, dt, A, Bm, Cm, h0=None, *, chunk: int = SSD_CHUNK, fault=None):
+    """B5's chunk-parallel algebra done plainly, used by tests only: each
+    chunk's own part -- the intra-chunk y, its decay d_c = exp(cum_L) and its
+    state contribution S_c -- formed without the carried state; the chunk-end
+    states folded in the order the kernel carries them, h_c = d_c h_{c-1} +
+    S_c from h0 (zeros when None); then y_i += exp(cum_i) C_i . h_{c-1}.
+    Same arguments and results as ``ssd_chunk_ref``.
+
+    ``fault`` names a broken carry, for checks that must reject one:
+    ``"no_chunk_decay"`` (h_c = h_{c-1} + S_c) or ``"stale_state"`` (chunk
+    c starts from chunk c - 2's end state, h0 for chunks 0 and 1)."""
+    if fault not in (None,) + SSD_FAULTS:
+        raise ValueError(f"fault {fault!r} is not one of {SSD_FAULTS}")
+    Bsz, S, nh, hd = x.shape
+    G, ds = Bm.shape[2], Bm.shape[3]
+    rep = nh // G
+    L = chunk
+    pad = (-S) % L
+    nc = (S + pad) // L
+    xf = _pad_seq(x, pad).reshape(Bsz, nc, L, nh, hd)
+    dtf = _pad_seq(dt, pad).reshape(Bsz, nc, L, nh)
+    Bh = _pad_seq(Bm, pad).reshape(Bsz, nc, L, G, ds).repeat_interleave(rep, dim=3)
+    Ch = _pad_seq(Cm, pad).reshape(Bsz, nc, L, G, ds).repeat_interleave(rep, dim=3)
+    cum = torch.cumsum(dtf * A.float(), dim=2)  # (B,nc,L,nh)
+    lower = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    ci = cum.permute(0, 1, 3, 2)  # (B,nc,nh,L)
+    dec = torch.exp(torch.where(lower, ci[..., :, None] - ci[..., None, :], float("-inf")))
+    w = torch.einsum("bclhs,bcmhs->bchlm", Ch, Bh) * dec * dtf.permute(0, 1, 3, 2)[..., None, :]
+    y = torch.einsum("bchlm,bcmhd->bclhd", w, xf)
+    d = torch.exp(cum[:, :, -1, :])  # (B,nc,nh)
+    wj = torch.exp(cum[:, :, -1:, :] - cum) * dtf
+    Sc = torch.einsum("bclh,bclhd,bclhs->bchds", wj, xf, Bh)
+    h = (torch.zeros((Bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    ends = [h]  # ends[c + 1]: chunk c's end state; ends[0]: h0
+    starts = []
+    for c in range(nc):
+        start = ends[max(c - 1, 0)] if fault == "stale_state" else ends[c]
+        dc = torch.ones_like(d[:, c]) if fault == "no_chunk_decay" else d[:, c]
+        starts.append(start)
+        ends.append(dc[..., None, None] * start + Sc[:, c])
+    starts = torch.stack(starts, dim=1)  # (B,nc,nh,hd,ds)
+    y = y + torch.einsum("bclhs,bchds->bclhd", Ch * torch.exp(cum)[..., None], starts)
+    return y.reshape(Bsz, nc * L, nh, hd)[:, :S].to(x.dtype), ends[-1]
+
+
 def ssd_ref(x, dt, A, Bm, Cm, h0=None):
     """Sequential (exact) SSD recurrence oracle, one token at a time.
 

@@ -4,20 +4,33 @@
 same name (``kernels/ssd.py``): the chunked state-space-duality scan of one
 Mamba2 layer's prefill, returning ``y`` and the final state. On a CPU tensor
 it runs the plain version (``kernels.ref.ssd_chunk_ref``); on a CUDA tensor
-it launches ``csrc/ssd_chunk_scan.cu`` or raises -- it never falls back.
+it launches ``src/repro_torch/kernels/csrc/ssd_chunk_scan.cu`` or raises --
+it never falls back.
 
 Where the JAX wrapper (``ops.ssd``) pads the sequence to a multiple of the
 chunk and transposes x, B and C to ``(B, heads, chunks, L, width)``, the
 kernel reads the model's layout in place: x ``(B, S, nh, hd)`` and B, C
 ``(B, S, G, ds)`` through their strides (they are column slices of the conv
-output), and it masks a ragged last chunk itself. ``ssd_chunk_scan.launches``
-counts launches.
+output), and it masks a ragged last chunk itself.
+
+The kernel runs the chunks in parallel: work items (chunk, head, a slice of
+hd) taken from an atomic ticket in chunk-major order, each
+waiting for its predecessor chunk's end state only after the work that does
+not need it. The end states pass through a ring in one scratch a device,
+kept from call to call (``_scratch``): its size comes from the kernel
+source's ``ssd_chunk_scan_scratch_layout`` (the Python copy of that schedule
+is ``ref.ssd_chunk_schedule``), it is zeroed when first made, and each call
+gets the next epoch number, with which the kernel tags its flags, so no call
+resets it. Calls that share a device's scratch must run one at a time (one
+stream). One wrapper call is one C call and one launch;
+``ssd_chunk_scan.launches`` counts them. hT is always a fresh tensor: it
+never aliases h0.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -30,15 +43,61 @@ DS_MAX = 128  # the kernel stages B and C rows of at most this many state dims
 
 @functools.cache
 def _launcher():
-    """The kernel's C entry point, built and loaded on first use."""
+    """The kernel's C entry points, built and loaded on first use."""
     lib = _build.load("ssd_chunk_scan")
     fn = lib.ssd_chunk_scan_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [i, p]
+    fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p, ll, ctypes.c_uint, i, i, p]
     fn.restype = i
+    layout = lib.ssd_chunk_scan_scratch_layout
+    layout.argtypes = [i] * 8 + [ctypes.POINTER(ll)]
+    layout.restype = i
     err = lib.ssd_chunk_scan_error_string
     err.argtypes, err.restype = [i], ctypes.c_char_p
-    return fn, err
+    return fn, layout, err
+
+
+SCHEDULE_KEYS = ("grid", "hs", "ipc", "ring", "nc", "nbytes")
+
+
+@functools.lru_cache(maxsize=None)
+def schedule(batch: int, seq: int, nh: int, hd: int, groups: int, ds: int, dtype_code: int,
+             sms: int) -> dict:
+    """The kernel's schedule of one call (``ssd_chunk_scan_scratch_layout``
+    in the kernel source): its grid, hd columns an item, items a chunk, ring
+    slots, chunks and scratch bytes."""
+    _, layout, err_string = _launcher()
+    out = (ctypes.c_longlong * len(SCHEDULE_KEYS))()
+    err = layout(batch, seq, nh, hd, groups, ds, dtype_code, sms, out)
+    if err != 0:
+        raise ValueError(f"ssd_chunk_scan takes no such call: {err_string(err).decode()}")
+    return dict(zip(SCHEDULE_KEYS, out))
+
+
+class _Scratch:
+    """One device's scratch: zeroed when made (or grown), then tagged anew by
+    each call's epoch."""
+
+    def __init__(self):
+        self.tensor: Optional[torch.Tensor] = None
+        self.epoch = 0
+
+    def take(self, device, nbytes: int):
+        if self.tensor is None or self.tensor.numel() < nbytes:
+            self.tensor = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        self.epoch += 1
+        if self.epoch >= 2**32:  # the flags hold 32 bits of it: start again from zeros
+            self.tensor.zero_()
+            self.epoch = 1
+        return self.tensor, self.epoch
+
+
+_SCRATCH: Dict[int, _Scratch] = {}
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(x, dt, A, Bm, Cm, h0):
@@ -88,13 +147,19 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None
         return ssd_chunk_ref(x, dt, A, Bm, Cm, h0)
     Bsz, S, nh, hd = x.shape
     G, ds = Bm.shape[2], Bm.shape[3]
-    y = torch.empty((Bsz, S, nh, hd), dtype=x.dtype, device=x.device)
-    hT = torch.empty((Bsz, nh, hd, ds), dtype=torch.float32, device=x.device)
-    fn, err_string = _launcher()
+    dev = x.device
+    code = DTYPE_CODES[x.dtype]
+    sms = _sm_count(dev.index)
+    nbytes = schedule(Bsz, S, nh, hd, G, ds, code, sms)["nbytes"]
+    scratch, epoch = _SCRATCH.setdefault(dev.index, _Scratch()).take(dev, nbytes)
+    y = torch.empty((Bsz, S, nh, hd), dtype=x.dtype, device=dev)
+    hT = torch.empty((Bsz, nh, hd, ds), dtype=torch.float32, device=dev)
+    fn, _, err_string = _launcher()
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              None if h0 is None else h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
              Bsz, S, nh, hd, G, ds, *x.stride()[:3], *Bm.stride()[:3], *dt.stride(),
-             DTYPE_CODES[x.dtype], torch.cuda.current_stream(x.device).cuda_stream)
+             scratch.data_ptr(), scratch.numel(), epoch, sms, code,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_scan launch failed: {err_string(err).decode()}")
     ssd_chunk_scan.launches += 1
