@@ -9,8 +9,8 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   device          card, power limit, torch/CUDA versions; TF32 off for fp32 checks
   build           nvcc builds every kernel of the port from src/repro_torch, one
                   process per source, all at once; ptxas's registers and spills
-                  of every instantiation (none of B1's or B5's, and none at
-                  head_dim 256, may spill)
+                  of every instantiation (none of B1's, B3's bf16 cluster's
+                  or B5's, and none at head_dim 256, may spill)
   kernel_parity   each kernel against its plain PyTorch version on the card, with
                   NaN in every dead key, at the main paths' shapes (Llama3.1-8B
                   heads: KV 8, G 4, d 128), at gemma2-2b's (KV 4, G 2, d 256,
@@ -25,7 +25,14 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   paged_attention (pages of 1, 16 and max_len; the dense
                   engine's decode-only and prefill-bearing steps, the latter's
                   chunk rows in row tiles), B3
-                  decode_attention, B4 flash_attention; B5 ssd_chunk_scan at
+                  decode_attention (bf16: the cluster plan each case ran
+                  against ref.cluster_plan, one launch a call in the trace,
+                  a combine without a share's rescale or with a share left
+                  out rejected, rows shorter than a block a CTA, a 131072-key
+                  row, G up to 16 at d 16 to 256, and one call captured in a
+                  CUDA graph and replayed on new inputs, bit-equal to
+                  eager), B4 flash_attention; B5
+                  ssd_chunk_scan at
                   Mamba2-2.7B's widths (100, 512 and 4096 tokens, the
                   overflow case), two groups and reduced widths, y and the
                   final state held apart; dropping h0 or the carry, a carry
@@ -89,7 +96,9 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel; bf16 against fp32 plai
 # |x|) and P enters the tensor cores in bf16, which moves a row by about 1e-3
 # of its rms; a skipped key block or an ignored softcap moves it by a tenth.
 BF16_ROW = (2.0**-7, 2e-2)
-FAULT_MARGIN = 3.0  # dropping softcap or window must break the check this many times over
+# a fault (softcap or window dropped, a broken combine) must break the check
+# this many times over
+FAULT_MARGIN = 3.0
 SERVE = dict(requests=8, prompt_lo=512, prompt_hi=4096, max_new=32, chunk=512,
              max_batch=8, max_prefills=2, page=16, max_len=8192)
 # every kernel of the port: its source and the TPU kernel it replaces
@@ -795,10 +804,29 @@ def row_library(torch, case):
     return call, lambda o: o.reshape(N, KV, G, d)
 
 
+def b3_plan(torch, q, cap):
+    """The launch shape B3's bf16 wrapper picks for ``q`` over a cache of
+    ``cap`` keys, held to its Python copy, with the clusters of that shape
+    the card holds at once."""
+    import ctypes
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import cluster_launchers, cluster_plan
+
+    N, KV, G, d = q.shape
+    C, stages = cluster_plan(N * KV, cap, d)
+    active = ctypes.c_int(0)
+    err = cluster_launchers()[1](d, G, C, stages, ctypes.byref(active))
+    return dict(cluster=C, stages=stages, ctas=C * N * KV, clusters=N * KV,
+                max_active_clusters=active.value if err == 0 else None,
+                matches_ref=(C, stages) == ref.cluster_plan(N * KV, cap, d))
+
+
 def run_row_case(torch, name, case):
     from repro_torch.kernels.decode_attention import decode_attention, split_count
     from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.ref import decode_attention_ref
+    from repro_torch.kernels.ref import (B3_FAULTS, cluster_shares, decode_attention_ref,
+                                         decode_cluster_ref)
 
     dtype = str(case["q"].dtype).replace("torch.", "")
     w, cap = case["window"], case["softcap"]
@@ -827,13 +855,27 @@ def run_row_case(torch, name, case):
     N, KV, G, d = q.shape
     n_tiles = None if tabs is None else case["tiles"].shape[0]
     tiled = n_tiles is not None and n_tiles < N and q.dtype == torch.bfloat16
-    rec = parity_record(torch, name, kernel_name, dtype, got, expect, faults,
-                        dict(rows=N, kv=KV, g=G, d=d, cap=case["cap"], page=case["page"],
-                             len_min=min(case["lengths"]), len_max=max(case["lengths"]),
-                             window=w, softcap=cap, row_tiles=n_tiles, tensor_core_tiles=tiled,
-                             n_split=split_count((n_tiles if tiled else N) * KV,
-                                                 case["cap"] if tabs is None
-                                                 else tabs.shape[1] * case["page"])))
+    shape = dict(rows=N, kv=KV, g=G, d=d, cap=case["cap"], page=case["page"],
+                 len_min=min(case["lengths"]), len_max=max(case["lengths"]), window=w,
+                 softcap=cap, row_tiles=n_tiles, tensor_core_tiles=tiled)
+    cluster = tabs is None and q.dtype == torch.bfloat16
+    if cluster:  # B3's bf16 cluster: its plan, and the combines it must not have
+        plan = b3_plan(torch, q, case["cap"])
+        # a combine without rescaling differs only where a row has two
+        # non-empty shares
+        shares = max(sum(hi > lo for lo, hi in cluster_shares(n, case["cap"], plan["cluster"], w))
+                     for n in case["lengths"])
+        plan["most_shares_a_row"] = shares
+        for fault in B3_FAULTS if shares > 1 else ("lost_share",):
+            faults[fault] = decode_cluster_ref(q.float(), k.float(), v.float(), lens,
+                                               cluster=plan["cluster"], window=w, softcap=cap,
+                                               fault=fault)
+    else:
+        shape["n_split"] = split_count((n_tiles if tiled else N) * KV, case["cap"] if tabs is None
+                                       else tabs.shape[1] * case["page"])
+    rec = parity_record(torch, name, kernel_name, dtype, got, expect, faults, shape)
+    if cluster:
+        rec.update(plan=plan, ok=rec["ok"] and plan["matches_ref"])
     if "segs" in case:  # a dense-engine step: segments share their slot's keys
         nbytes, flops = work(case)
         lib, rows = library_call(torch, dict(case, tables=case["seg_tables"]))
@@ -849,7 +891,50 @@ def run_row_case(torch, name, case):
                          lambda: plain(k, v, window=w, softcap=cap), lib, reps=20),
                bound_ms=b, bound_by=by, bytes=nbytes, flops=flops, library=lib_name,
                library_max_abs_err=float((rows(lib()).float() - expect).abs().max()))
+    if cluster:  # one launch a call: one kernel in the trace, once a call
+        rec["launches_per_call"] = {key: round(n / rec["timed_calls"])
+                                    for key, n in rec["kernel_records"].items()}
+        rec["ok"] = rec["ok"] and rec["timing"] == "profiler" and list(
+            rec["launches_per_call"].values()) == [1]
     return finish(rec)
+
+
+def b3_graph_replay(torch):
+    """One ``b3_serial_bf16`` call captured in a CUDA graph, replayed twice
+    after new q, K/V and lengths are copied into its inputs: each replay
+    must give the bits an eager call gives on those inputs, and the eager
+    call must pass the parity check."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.ref import decode_attention_ref
+
+    llama = dict(kv=8, g=4, d=128, dtype=torch.bfloat16, cap=8192)
+    first = row_case(torch, 180, [4096], **llama)
+    q, k, v, lens = (first[x].clone() for x in ("q", "k", "v", "lens"))
+    decode_attention(q, k, v, lens)  # the first call opts in, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, lens)
+    replays = []
+    for seed, length in ((181, 3000), (182, 7777)):
+        new = row_case(torch, seed, [length], **llama)
+        for name in ("q", "k", "v", "lens"):
+            {"q": q, "k": k, "v": v, "lens": lens}[name].copy_(new[name])
+        graph.replay()
+        torch.cuda.synchronize()
+        replayed = out.clone()
+        eager = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        plain = decode_attention_ref(q.float(), k.float(), v.float(), lens)
+        replays.append(dict(length=length, bit_equal=bool(torch.equal(replayed, eager)),
+                            tol_used=tol_used(eager.float(), plain, "bfloat16"),
+                            finite=bool(torch.isfinite(replayed.float()).all())))
+    rec = dict(phase="kernel_parity", case="b3_graph_replay_bf16", kernel="decode_attention",
+               replays=replays)
+    rec["ok"] = all(r["bit_equal"] and r["finite"] and r["tol_used"] <= 1 for r in replays)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"b3_graph_replay_bf16: {rec}")
 
 
 # ---------------------------------------------------------------------------
@@ -975,6 +1060,23 @@ def single_query_and_flash_parity(torch):
                                                softcap=5.0)),
         ("b3_micro_fp32", micro_lens, dict(micro, dtype=f32, cap=8192)),
         ("b3_reduced_d16_fp32", [1, 5, 64], dict(kv=2, g=2, d=16, dtype=f32, cap=64)),
+        # the bf16 cluster at its limits: C 16 with rows shorter than a block
+        # a CTA (ranks left empty), one key, exactly C x 64 keys; C 16 over
+        # a 131072-key row (128 blocks a CTA through a ring of 8) at G 16;
+        # the smallest and middle head dims
+        ("b3_short_bf16", [100], dict(llama, dtype=bf16, cap=8192)),
+        ("b3_one_key_bf16", [1], dict(llama, dtype=bf16, cap=8192)),
+        ("b3_exact_c64_bf16", [1024], dict(llama, dtype=bf16, cap=8192)),
+        ("b3_long_g16_bf16", [131072], dict(kv=1, g=16, d=64, dtype=bf16, cap=131072)),
+        ("b3_d16_g1_bf16", [1, 37, 300, 1024], dict(kv=2, g=1, d=16, dtype=bf16, cap=1024,
+                                                    window=100, softcap=5.0)),
+        ("b3_d32_g8_bf16", [65, 640, 2000], dict(kv=2, g=8, d=32, dtype=bf16, cap=2048,
+                                                 window=700, softcap=3.0)),
+        # two n8 tiles of query heads (G > 8) at d 128 and 256
+        ("b3_d128_g12_bf16", [1000, 4000], dict(kv=2, g=12, d=128, dtype=bf16, cap=4096)),
+        ("b3_d256_g16_bf16", [77, 3000], dict(kv=1, g=16, d=256, dtype=bf16, cap=4096,
+                                              window=1000, softcap=50.0, q_scale=64.0,
+                                              nan_left_of_window=False)),
         # B2: one query per row through a block table
         ("b2_dense_engine_bf16", [512 + 509 * i for i in range(8)],
          dict(llama, dtype=bf16, cap=8192, page=8192)),
@@ -1003,6 +1105,7 @@ def single_query_and_flash_parity(torch):
         recs[name] = run_row_case(torch, name, case)
         del case
         torch.cuda.empty_cache()
+    b3_graph_replay(torch)
     # B2 on a prefill-bearing step of the dense engine, over a 9 x 8192 slot
     # cache: the step's 512-token budget holds 6 decode rows, the last 235
     # tokens of a 2795-token prompt and the first 271 of the next; 512 rows,
@@ -2016,11 +2119,14 @@ def main() -> int:
                d256_spilling=[f["function"] for f in spills if f["head_dim"] == 256],
                b1_spilling=[f["function"] for f in spills
                             if "mixed_paged_attention" in f["function"]],
-               b5_spilling=[f["function"] for f in spills if "ssd_chunk_scan" in f["function"]])
-    # every head-dim-256 instantiation, and every one of B1's and B5's, must
-    # keep its registers (a rebuilt library reports nothing: build_all skips
-    # a source that is up to date)
-    rec["ok"] = not rec["d256_spilling"] and not rec["b1_spilling"] and not rec["b5_spilling"]
+               b5_spilling=[f["function"] for f in spills if "ssd_chunk_scan" in f["function"]],
+               b3_cluster_spilling=[f["function"] for f in spills
+                                    if "cluster_decode" in f["function"]])
+    # every head-dim-256 instantiation, and every one of B1's, B3's bf16
+    # cluster's and B5's, must keep its registers (a rebuilt library reports
+    # nothing: build_all skips a source that is up to date)
+    rec["ok"] = not (rec["d256_spilling"] or rec["b1_spilling"] or rec["b5_spilling"]
+                     or rec["b3_cluster_spilling"])
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"build: instantiations spill: {rec}")
@@ -2072,7 +2178,7 @@ def main() -> int:
             library_ms=main_case["library_ms"], library=main_case["library"],
             timing=main_case["timing"], kernel_parts=main_case["kernel_parts"],
             event_ms=main_case["kernel_event_ms"], host_us=main_case["kernel_host_us"],
-            shape_case=cases[0], main_path=path["phase"],
+            shape_case=cases[0], main_path=path["phase"], plan=main_case.get("plan"),
             main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],
                                   plain_ms=parity[n]["plain_ms"],
                                   bound_ms=parity[n]["bound_ms"],

@@ -49,6 +49,24 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool va
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem), "r"(n));
 }
 
+// An L2 policy that marks what it loads first to go: data read once (a KV
+// stream) then replaces itself rather than what L2 holds for others, and
+// evicts no dirty line that would have to be written back on the way.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// cp_async16 under an L2 policy (l2_evict_first)
+__device__ __forceinline__ void cp_async16_hint(void* smem, const void* gmem, bool valid,
+                                                uint64_t policy) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2, %3;\n" ::"r"(dst),
+               "l"(gmem), "r"(n), "l"(policy));
+}
+
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
 // wait until at most N committed groups are still in flight
@@ -139,6 +157,24 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const __nv_bfloat1
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
+}
+
+// The A fragment (16 x 16) of the transpose of a row-major bf16 tile in
+// shared memory: lane l gives the address of stored row (l % 8) + 8 (l / 16)
+// at column 8 ((l / 8) % 2); each 8x8 matrix is transposed on load.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], const __nv_bfloat16* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// the transpose of an 8x8 bf16 matrix held in a warp's fragment layout
+// (lane (g, t) holds row g, columns 2t and 2t + 1)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
 }
 
 constexpr int MMA_BK = 64;  // keys per staged block of the mma.sync kernels

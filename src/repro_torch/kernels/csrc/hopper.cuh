@@ -1,6 +1,7 @@
-// Hopper-only device helpers (sm_90a): mbarriers, TMA tensor loads, and the
+// Hopper-only device helpers (sm_90a): mbarriers, TMA tensor loads, the
 // warpgroup matrix products (wgmma) of the port's FlashAttention kernel (B4)
-// and of B1's chunk tiles.
+// and of B1's chunk tiles, and the thread-block cluster's barrier and
+// distributed shared memory (B3).
 //
 // Shared-memory operands of wgmma are tiles in the 128-byte swizzle that TMA
 // writes with CU_TENSOR_MAP_SWIZZLE_128B: a region of rows of 64 bf16 (128
@@ -64,6 +65,53 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int phase) {
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
   while (!mbar_try_wait(bar, phase)) {
   }
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ int cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return int(r);
+}
+
+// every thread of every CTA of the cluster arrives, then waits: shared-memory
+// writes before it are visible to the cluster's reads after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+// the two halves of a barrier that orders nothing: a CTA arrives when it
+// starts and waits before its first write to a peer's shared memory, so
+// that every peer has started
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address of ``p`` (this CTA's shared memory) in CTA ``rank``'s
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_cluster2(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_cluster4(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------

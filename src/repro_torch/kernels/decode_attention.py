@@ -9,12 +9,16 @@ never falls back. The cache is read in place through its strides (a
 ``(B, max_len, KV, d)`` cache is never transposed or padded), so a decode
 step moves the live keys and nothing else.
 
-The same CUDA source serves B2 (``paged_attention.paged_attention``): one
-kernel, two key-addressing policies. Its keys are split over several CTAs
-per (row, KV head) when there are too few rows to fill the card
-(``split_count``), with a small combine pass; the split and the fp32
-workspace it needs are sized here. ``decode_attention.launches`` counts
-launches (one per call, combine included).
+In bf16 a call is one launch: the keys of each (row, KV head) are split
+over the CTAs of one thread-block cluster, which combine their partials in
+distributed shared memory, so there is no workspace. ``cluster_plan`` sizes
+the cluster and its ring from the row count, the cache's capacity and d
+(never from the lengths, so a shape keeps one launch shape). In fp32 the
+keys are split over several CTAs per (row, KV head) when there are too few
+rows to fill the card (``split_count``), with a small combine pass and the
+fp32 workspace it needs, sized here; the same CUDA source and split serve
+B2 (``paged_attention.paged_attention``). ``decode_attention.launches``
+counts one per call.
 """
 from __future__ import annotations
 
@@ -32,6 +36,15 @@ G_MAX = 16  # query heads per KV head (csrc/decode_attention.cu)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_TARGET_CTAS = 264  # two CTAs for each of the H100's 132 SMs
 MIN_SPLIT_KEYS = 256  # a split streams at least this many keys of its row
+# B3's bf16 cluster (csrc/decode_attention.cu, CL_*)
+CLUSTER_MAX = 16  # CTAs a cluster; above 8 the card must allow non-portable sizes
+CLUSTER_RING_BYTES = 212992  # shared memory a CTA's ring of K/V blocks may take
+# clusters of each size an H100 holds at once, at one CTA an SM (its 256
+# threads' registers allow no second): cudaOccupancyMaxActiveClusters, as
+# chip_smoke.py records it in each B3 case's plan
+CLUSTERS_HELD = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+CLUSTER_STAGES_MAX = 4  # blocks a ring may hold: two a group of warps
+BLOCK_KEYS = 64  # keys a staged block
 
 
 @functools.cache
@@ -51,6 +64,21 @@ def launchers():
     return dense, paged, err
 
 
+@functools.cache
+def cluster_launchers():
+    """B3's bf16 entry point (one cluster launch a call) and the card's
+    count of its clusters that fit at once, from the same library."""
+    lib = _build.load("decode_attention")
+    p, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    launch = lib.decode_cluster_launch
+    launch.argtypes = [p] * 5 + [i, i, ll, ll, ll, i, i, i, i, i, f, f, i, p]
+    launch.restype = i
+    occupancy = lib.decode_cluster_occupancy
+    occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    occupancy.restype = i
+    return launch, occupancy
+
+
 def split_count(pairs: int, max_keys: int) -> int:
     """CTAs per (row, KV head): enough for ``SPLIT_TARGET_CTAS`` over all
     ``pairs``, but no split shorter than ``MIN_SPLIT_KEYS`` of a row that
@@ -58,6 +86,31 @@ def split_count(pairs: int, max_keys: int) -> int:
     keys, so short rows leave their later splits empty."""
     want = -(-SPLIT_TARGET_CTAS // max(pairs, 1))
     return max(1, min(want, -(-max_keys // MIN_SPLIT_KEYS)))
+
+
+def cluster_stage_bytes(head_dim: int) -> int:
+    """Shared memory of one staged block: its keys' K and V rows, padded by
+    8 bf16 each."""
+    return 2 * BLOCK_KEYS * (head_dim + 8) * 2
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(pairs: int, cap: int, head_dim: int) -> tuple:
+    """B3's bf16 launch shape for ``pairs`` (row, KV head) pairs over a cache
+    of ``cap`` keys a row: (C, stages). C, the CTAs of a cluster, is the
+    largest power of two up to ``CLUSTER_MAX`` whose ``pairs`` clusters the
+    card holds at once (``CLUSTERS_HELD``) and that gives every CTA at least
+    one block at capacity. ``stages``, the blocks a CTA's ring holds, is 2
+    or 4, half for each of the CTA's two groups of warps: 4 where the share
+    at capacity needs them and ``CLUSTER_RING_BYTES`` allow. Lengths never
+    enter: a shape keeps one launch shape."""
+    blocks = max(1, -(-cap // BLOCK_KEYS))
+    c = 1
+    while 2 * c <= CLUSTER_MAX and pairs <= CLUSTERS_HELD[2 * c] and 2 * c <= blocks:
+        c *= 2
+    per_group = min(CLUSTER_RING_BYTES // (2 * cluster_stage_bytes(head_dim)),
+                    CLUSTER_STAGES_MAX // 2, -(-blocks // (2 * c)))
+    return c, 2 * per_group
 
 
 def workspace(q: torch.Tensor, n_split: int):
@@ -129,15 +182,23 @@ def decode_attention(q, k, v, lengths, *, window: Optional[int] = None,
         return decode_attention_ref(q, k, v, lengths, window=window, softcap=softcap)
     B, KV, G, d = q.shape
     S = k.shape[1]
-    n_split = split_count(B * KV, S)
     out = torch.empty_like(q)
-    o_part, ml_part, _keep = workspace(q, n_split)
-    dense, _, err_string = launchers()
     sb, ss, sh, _ = k.stride()
-    err = dense(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), o_part, ml_part,
-                lengths.data_ptr(), B, S, sb, ss, sh, KV, G, d, n_split, 1.0 / d**0.5,
-                0.0 if softcap is None else float(softcap), 0 if window is None else int(window),
-                DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    cap = 0.0 if softcap is None else float(softcap)
+    win = 0 if window is None else int(window)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _, _, err_string = launchers()
+    if q.dtype == torch.bfloat16:
+        C, stages = cluster_plan(B * KV, S, d)
+        err = cluster_launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                     lengths.data_ptr(), B, S, sb, ss, sh, KV, G, d, C, stages,
+                                     1.0 / d**0.5, cap, win, stream)
+    else:
+        n_split = split_count(B * KV, S)
+        o_part, ml_part, _keep = workspace(q, n_split)
+        err = launchers()[0](q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), o_part,
+                             ml_part, lengths.data_ptr(), B, S, sb, ss, sh, KV, G, d, n_split,
+                             1.0 / d**0.5, cap, win, DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"decode_attention launch failed: {err_string(err).decode()}")
     decode_attention.launches += 1

@@ -221,6 +221,91 @@ def mixed_split_ref(q, k_pages, v_pages, cu_q_lens, kv_lens, block_tables, *, ct
     return out.to(q.dtype)
 
 
+# B3's bf16 cluster, as the kernel's library sizes it (csrc/decode_attention.cu)
+B3_BLOCK = 64  # keys a staged block
+B3_RING_BYTES = 212992  # a CTA's ring of K/V blocks
+B3_HELD = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}  # an H100's clusters at once, by size
+B3_STAGES_MAX = 4
+B3_FAULTS = ("no_rescale", "lost_share")
+
+
+def cluster_plan(pairs, cap, head_dim):
+    """Python copy of ``decode_attention.cluster_plan``, used by tests and
+    ``chip_smoke.py``: (C, stages) for ``pairs`` (row, KV head) pairs over a
+    cache of ``cap`` keys a row at head dim ``head_dim``. C is the widest of
+    the cluster sizes 16, 8, 4, 2, 1 of which an H100 holds ``pairs`` at
+    once and whose CTAs each get a block at capacity; the ring holds 2 or 4
+    blocks (two groups of warps, a half each): 4 where a CTA's share at
+    capacity needs them and its bytes allow."""
+    blocks = max(1, -(-cap // B3_BLOCK))
+    C = next(c for c in (16, 8, 4, 2, 1) if c == 1 or (pairs <= B3_HELD[c] and c <= blocks))
+    stage = 2 * B3_BLOCK * (head_dim + 8) * 2  # K and V rows of a block, bf16, padded by 8
+    a_group = min(B3_RING_BYTES // (2 * stage), B3_STAGES_MAX // 2, -(-blocks // (2 * C)))
+    return C, 2 * a_group
+
+
+def cluster_shares(length, cap, cluster, window=None):
+    """The keys [lo, hi) each CTA rank of a B3 cluster takes of a row of
+    ``length`` over a cache of ``cap`` keys: the live keys [max(0, length -
+    window), min(length, cap)) cut into ``cluster`` spans of ceil(live / C)
+    rounded up to a block; trailing ranks may get none (lo == hi)."""
+    k_hi = min(length, cap)
+    k_lo = 0 if window is None else max(0, length - window)
+    live = max(0, k_hi - k_lo)
+    span = -(-(-(-live // cluster)) // B3_BLOCK) * B3_BLOCK
+    out = []
+    for r in range(cluster):
+        lo = k_lo + r * span
+        out.append((lo, max(lo, min(k_hi, lo + span))))
+    return out
+
+
+def decode_cluster_ref(q, k, v, lengths, *, cluster: int, window: Optional[int] = None,
+                       softcap: Optional[float] = None, fault: Optional[str] = None):
+    """``decode_attention_ref`` computed as B3's bf16 kernel splits it, used
+    by tests and ``chip_smoke.py``: each row's live keys cut into the
+    ``cluster`` CTA shares of ``cluster_shares``, each share's partial (m, l,
+    acc) taken alone (m = NEG_INF, l = 0, acc = 0 for an empty share), then
+    combined as the rank that owns an output combines it: m = max_c m_c,
+    each partial weighted by e^(m_c - m), the C weighted partials summed in
+    the kernel's butterfly (partial c plus partial c ^ o, for o = 1, 2, 4,
+    ...; ``cluster`` a power of two), out = acc / max(l, 1e-37). Keys
+    outside a share are never read. Same arguments and result as
+    ``decode_attention_ref``.
+
+    ``fault`` names a broken combine, for checks that must reject one:
+    ``"no_rescale"`` (the partials summed without e^(m_c - m)) or
+    ``"lost_share"`` (rank 0's partial left out)."""
+    if fault not in (None,) + B3_FAULTS:
+        raise ValueError(f"fault {fault!r} is not one of {B3_FAULTS}")
+    B, KV, G, d = q.shape
+    S = k.shape[1]
+    out = torch.zeros((B, KV, G, d), dtype=torch.float32, device=q.device)
+    for b, length in enumerate(lengths.tolist()):
+        qb = q[b].float()
+        ms, ls, accs = [], [], []
+        for lo, hi in cluster_shares(length, S, cluster, window):
+            s = _softcap(torch.einsum("kgd,skd->kgs", qb, k[b, lo:hi].float()) / d**0.5, softcap)
+            m = s.amax(-1) if hi > lo else torch.full((KV, G), NEG_INF, device=q.device)
+            p = torch.exp(s - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("kgs,skd->kgd", p, v[b, lo:hi].float()))
+        m_all = torch.stack(ms).amax(0)
+        w = [torch.ones_like(m) if fault == "no_rescale" else torch.exp(m - m_all) for m in ms]
+        if fault == "lost_share":
+            w[0] = torch.zeros_like(w[0])
+        l_c = [wc * lc for wc, lc in zip(w, ls)]
+        a_c = [wc[..., None] * ac for wc, ac in zip(w, accs)]
+        o = 1
+        while o < cluster:  # the kernel's shuffles: lane c adds lane c ^ o
+            l_c = [l_c[c] + l_c[c ^ o] for c in range(cluster)]
+            a_c = [a_c[c] + a_c[c ^ o] for c in range(cluster)]
+            o *= 2
+        out[b] = a_c[0] * (1.0 / l_c[0].clamp_min(1e-37))[..., None]
+    return out.to(q.dtype)
+
+
 def mixed_split_plan(tiles, cu_q_lens, kv_lens, *, tile_rows: int, group: int, span_keys: int,
                      pair: bool, light_max: int, n_kv: int, sms: int,
                      window: Optional[int] = None):
