@@ -38,7 +38,15 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   final state held apart; dropping h0 or the carry, a carry
                   without the chunk's decay and a stale carried state (chunk
                   c - 2's) rejected; the schedule the kernel's library makes
-                  against its Python copy
+                  against its Python copy. The new GQA groups (group_parity):
+                  B1-B4 at KV 2, d 128 with G 6 (qwen2-1.5b) and G 16
+                  (chatglm3-6b; B3 at G 6 only), bf16 and fp32, at their main
+                  paths' shapes. B5's scratch (b5_scratch_checks): one call
+                  captured in a CUDA graph and replayed twice on new inputs,
+                  bit-equal to eager, its epoch word moved on by one a
+                  replay; a call on a second stream on a scratch of its own;
+                  the epoch word's wrap (flags and states zeroed, epoch 1);
+                  a capture on an unsized stream refused
   reduced_serve   the paged engine at reduced width in fp32 on the card (kernel)
                   and on the CPU (plain version): the same greedy tokens
   engine_bf16     the engine in bf16 at Llama3.1-8B's attention heads, reduced
@@ -53,6 +61,11 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   reduced_two_call reduced mamba2-2.7b in fp32: the two-call engine on the card
                   (B5) and on the CPU and the serial path on the card give the
                   same greedy tokens
+  reduced_archs   gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b and llama3.1-70b
+                  at reduced widths with their published GQA groups (G 2, 6,
+                  16, 8, 8), fp32, biases and norm scales drawn from a seed:
+                  the paged engine on the card gives the CPU's greedy tokens,
+                  and for gemma2 so do the dense engine and the serial path
   serve           the port's Engine (paged, B1) on Llama3.1-8B at full width, all
                   32 layers, bf16, seeded random weights: 8 requests, 32 new
                   tokens each; then a profiled window (serve_profile)
@@ -70,10 +83,23 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   prefill segment), after a checked pass (serve_mamba_check:
                   every layer's B5 call of one segment that carries a state
                   against the plain version); then a profiled window
+  serve_gemma2, serve_dense_gemma2, serial_gemma2
+                  gemma2-2b at full width and depth (26 layers, window 4096
+                  on its even layers, softcaps 50 and 30), bf16, through the
+                  paged engine, the dense engine (after its checked pass,
+                  serve_dense_gemma2_check) and serially, on GEMMA2_SERVE:
+                  SERVE with every prompt 4500-7900 tokens, past the window
+  serve_qwen2, serve_chatglm3, serve_qwen3, serve_llama70b
+                  SERVE's workload through the paged engine at the published
+                  widths of qwen2-1.5b (G 6, biases, tied), chatglm3-6b (G
+                  16, half-dim RoPE, biases) and qwen3-32b (G 8, q/k norms),
+                  all at full depth, and llama3.1-70b at 32 of its 80 layers
 
-then the kernels line, the card's name and power limit as nvidia-smi gives
-them, and, last, {"ok": true, "device": {...}}. Any failure raises: the
-script exits nonzero and prints no result. Without a CUDA card it exits 1.
+then the kernels line (each kernel's launches on its main path and on every
+path that ran it, ``launches_by_path``), the card's name and power limit as
+nvidia-smi gives them, and, last, {"ok": true, "device": {...}}. Any failure
+raises: the script exits nonzero and prints no result. Without a CUDA card
+it exits 1.
 """
 from __future__ import annotations
 
@@ -101,6 +127,14 @@ BF16_ROW = (2.0**-7, 2e-2)
 FAULT_MARGIN = 3.0
 SERVE = dict(requests=8, prompt_lo=512, prompt_hi=4096, max_new=32, chunk=512,
              max_batch=8, max_prefills=2, page=16, max_len=8192)
+# gemma2-2b's paths: SERVE with every prompt past its 4096-token local window
+GEMMA2_SERVE = dict(SERVE, prompt_lo=4500, prompt_hi=7900)
+# the full-width runs of the archs beside Llama3.1-8B: (phase, arch, layers
+# run: None for all), each through the paged engine on SERVE's workload
+ARCH_SERVES = [("serve_qwen2", "qwen2-1.5b", None), ("serve_chatglm3", "chatglm3-6b", None),
+               ("serve_qwen3", "qwen3-32b", None),
+               # 141 GB in bf16: its published widths at 32 of its 80 layers
+               ("serve_llama70b", "llama3.1-70b", 32)]
 # every kernel of the port: its source and the TPU kernel it replaces
 KERNELS = {
     "mixed_paged_attention": ("src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
@@ -1153,6 +1187,48 @@ def single_query_and_flash_parity(torch):
     return recs
 
 
+def group_parity(torch):
+    """B1-B4 at the GQA groups of qwen2-1.5b (12 query heads over 2 KV heads,
+    G 6: a q-tile of 10 rows holds 60 of its 64 query vectors) and
+    chatglm3-6b (32 over 2, G 16: a q-tile of 4 rows), d 128, bf16 and fp32,
+    at the shapes of their main paths: B1's mixed step and 16 decode rows,
+    B2's dense decode-only and prefill-bearing steps, B3's serial decode (G
+    6), B4's 4096-token prompt; every case timed."""
+    import numpy as np
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    decode16 = [(1, int(c)) for c in np.linspace(1024, 32768, 16)]
+    mixed = [(1, int(c)) for c in np.linspace(1024, 4096, 8)] + [(512, 4096 + 512)]
+    dense_step = [(1, n) for n in (600, 1100, 1650, 2300, 2900, 3590)] + [(235, 2795),
+                                                                          (271, 271)]
+    recs = {}
+    for g, seed in ((6, 700), (16, 720)):
+        grp = dict(kv=2, g=g, d=128)
+        for i, (dtype, tag) in enumerate(((bf16, "bf16"), (f32, "fp32"))):
+            name = f"g{g}_mixed_{tag}"
+            recs[name] = run_case(torch, name, make_case(torch, seed + i, mixed, page=16,
+                                                         dtype=dtype, **grp))
+            name = f"g{g}_decode16_{tag}"
+            recs[name] = run_case(torch, name, make_case(torch, seed + 2 + i, decode16,
+                                                         page=16, dtype=dtype, **grp))
+            name = f"b2_g{g}_dense_engine_{tag}"
+            recs[name] = run_row_case(torch, name, row_case(
+                torch, seed + 4 + i, [512 + 509 * j for j in range(8)], dtype=dtype, cap=8192,
+                page=8192, **grp))
+            name = f"b2_g{g}_dense_prefill_{tag}"
+            recs[name] = run_row_case(torch, name, dense_step_case(
+                torch, seed + 6 + i, dense_step, dtype=dtype, cap=8192, **grp))
+            if g == 6:
+                name = f"b3_g{g}_serial_{tag}"
+                recs[name] = run_row_case(torch, name, row_case(
+                    torch, seed + 8 + i, [4096], dtype=dtype, cap=8192, **grp))
+            name = f"b4_g{g}_prompt4096_{tag}"
+            recs[name] = run_flash_case(torch, name, flash_case(
+                torch, seed + 10 + i, 1, 4096, dtype=dtype, cache=8192, **grp))
+            torch.cuda.empty_cache()
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # kernel_parity: B5 ssd_chunk_scan
 # ---------------------------------------------------------------------------
@@ -1326,6 +1402,120 @@ def ssd_parity(torch):
     return recs
 
 
+def b5_scratch_checks(torch):
+    """B5's scratch under graph replay, on a second stream and at the wrap of
+    its epoch, at b5_s512_bf16's shape:
+
+    * ``b5_graph_replay_bf16``: the scratch reserved on a side stream
+      (``ssd.reserve_scratch``), one call captured there, the graph replayed
+      twice after new inputs are copied into its inputs: each replay equals
+      an eager call on those inputs bit for bit, is within tolerance of the
+      plain version, and moves the captured scratch's epoch word on by one;
+    * ``b5_second_stream``: a call on a second stream runs on a scratch of
+      its own and gives the default stream's bits;
+    * ``b5_epoch_wrap``: with the epoch word at 2^32 - 1 the call is right,
+      its last CTA zeroes the ticket, the flags and the states and sets the
+      word to 1, and the next call gives the same bits at epoch 1;
+    * ``b5_capture_unreserved``: capturing a call on a stream whose scratch
+      was never sized raises before anything is launched."""
+    from repro_torch.kernels import ssd
+    from repro_torch.kernels.ref import ssd_chunk_ref
+
+    m2 = dict(nh=80, hd=64, G=1, ds=128, dtype=torch.bfloat16)
+    names = ("x", "dt", "A", "Bm", "Cm", "h0")
+    case = ssd_case(torch, 600, 1, 512, **m2)
+    args = tuple(case[k] for k in names)
+    cur = torch.cuda.current_stream()
+
+    def word(stream):
+        return int(ssd._SCRATCH[(0, stream.cuda_stream)].tensor.view(torch.int32)[
+            ssd.EPOCH_WORD]) & 0xFFFFFFFF
+
+    def plain_used(y, hT):
+        fargs = (case["x"].float(), case["dt"], case["A"], case["Bm"].float(),
+                 case["Cm"].float(), case["h0"])
+        y_p, h_p = ssd_chunk_ref(*fargs)
+        return max(tol_used(ssd_rows(y.float()), ssd_rows(y_p), "bfloat16"),
+                   tol_used(ssd_rows(hT), ssd_rows(h_p), "float32"))
+
+    side = torch.cuda.Stream()
+    reserved = ssd.reserve_scratch(1, 512, 80, 64, 1, 128, torch.bfloat16, stream=side)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        ssd.ssd_chunk_scan(*args)
+    cur.wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        y, hT = ssd.ssd_chunk_scan(*args)
+    replays = []
+    for seed in (601, 602):
+        new = ssd_case(torch, seed, 1, 512, **m2)
+        for k in names:
+            case[k].copy_(new[k])
+        torch.cuda.synchronize()
+        before = word(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = (y.clone(), hT.clone())
+        eager = ssd.ssd_chunk_scan(*args)
+        torch.cuda.synchronize()
+        replays.append(dict(seed=seed, epoch_before=before, epoch_after=word(side),
+                            bit_equal=all(torch.equal(a, b) for a, b in zip(got, eager)),
+                            tol_used=plain_used(*got)))
+    rec = dict(phase="kernel_parity", case="b5_graph_replay_bf16", kernel="ssd_chunk_scan",
+               reserved_bytes=reserved, replays=replays)
+    rec["ok"] = all(r["bit_equal"] and r["tol_used"] <= 1
+                    and r["epoch_after"] == r["epoch_before"] + 1 for r in replays)
+    finish(rec)
+    del graph, y, hT
+
+    eager = ssd.ssd_chunk_scan(*args)
+    two = torch.cuda.Stream()
+    two.wait_stream(cur)
+    with torch.cuda.stream(two):
+        got = ssd.ssd_chunk_scan(*args)
+    cur.wait_stream(two)
+    torch.cuda.synchronize()
+    own = ssd._SCRATCH[(0, two.cuda_stream)].tensor
+    rec = dict(phase="kernel_parity", case="b5_second_stream", kernel="ssd_chunk_scan",
+               scratches=len(ssd._SCRATCH),
+               own_scratch=own.data_ptr() != ssd._SCRATCH[(0, cur.cuda_stream)].tensor.data_ptr(),
+               bit_equal=all(torch.equal(a, b) for a, b in zip(got, eager)))
+    rec["ok"] = rec["own_scratch"] and rec["bit_equal"]
+    finish(rec)
+
+    scratch = ssd._SCRATCH[(0, cur.cuda_stream)].tensor
+    scratch.view(torch.int32)[ssd.EPOCH_WORD] = -1  # 2^32 - 1
+    wrapped = ssd.ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    header = [v & 0xFFFFFFFF for v in scratch.view(torch.int32)[:3].tolist()]
+    body_zero = bool((scratch[16:] == 0).all())
+    after = ssd.ssd_chunk_scan(*args)
+    torch.cuda.synchronize()
+    rec = dict(phase="kernel_parity", case="b5_epoch_wrap", kernel="ssd_chunk_scan",
+               header_after_wrap=header, body_zero_after_wrap=body_zero,
+               epoch_after_next=word(cur),
+               wrap_bit_equal=all(torch.equal(a, b) for a, b in zip(wrapped, eager)),
+               next_bit_equal=all(torch.equal(a, b) for a, b in zip(after, eager)))
+    rec["ok"] = (header == [0, 0, 1] and body_zero and rec["epoch_after_next"] == 2
+                 and rec["wrap_bit_equal"] and rec["next_bit_equal"])
+    finish(rec)
+
+    fresh = torch.cuda.Stream()
+    raised = None
+    try:
+        with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=fresh):
+            ssd.ssd_chunk_scan(*args)
+    except RuntimeError as err:
+        raised = str(err)
+    torch.cuda.synchronize()
+    rec = dict(phase="kernel_parity", case="b5_capture_unreserved", kernel="ssd_chunk_scan",
+               raised=raised)
+    rec["ok"] = raised is not None and "reserve_scratch" in raised
+    finish(rec)
+
+
 # ---------------------------------------------------------------------------
 # serving
 # ---------------------------------------------------------------------------
@@ -1467,26 +1657,150 @@ def engine_bf16(torch):
         raise AssertionError(f"engine_bf16: {rec}")
 
 
-def full_model(torch, arch="llama3.1-8b"):
-    """A model at its published widths and depth, bf16, weights drawn on the
-    card from seed 0: Llama3.1-8B (all 32 layers; shared by serve,
-    serve_dense and serial) or Mamba2-2.7B (all 64 layers; serve_mamba)."""
+# the archs that share Llama3.1-8B's paths, each with its published GQA group
+ARCH_GROUPS = {"gemma2-2b": 2, "qwen2-1.5b": 6, "chatglm3-6b": 16, "qwen3-32b": 8,
+               "llama3.1-70b": 8}
+
+
+def _drawn_leaves(torch, tree, gen):
+    """The parameters with every bias drawn from N(0, 0.5^2) and every norm
+    scale from 1 + N(0, 0.3^2) (the init makes zeros and ones, which would
+    hide a leaf that the path dropped)."""
+    if isinstance(tree, dict):
+        return {k: (0.5 * torch.randn(v.shape, generator=gen) if k == "b" else
+                    1 + 0.3 * torch.randn(v.shape, generator=gen) if k == "scale" else
+                    _drawn_leaves(torch, v, gen)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_drawn_leaves(torch, v, gen) for v in tree]
+    return tree
+
+
+def _serial_gap(torch, model, params, prompt, n_new, max_len):
+    """The smallest top-2 logit gap over a prompt's greedy serial steps."""
+    cache = model.init_cache(1, max_len)
+    logits, _ = model.prefill(params, {"tokens": torch.tensor([prompt], dtype=torch.int32)},
+                              cache, 0)
+    gaps = []
+    for i in range(n_new):
+        top = torch.topk(logits[0], 2).values
+        gaps.append(float(top[0] - top[1]))
+        tok = torch.tensor([[int(logits[0].argmax())]], dtype=torch.int32)
+        if i < n_new - 1:
+            logits, _ = model.decode_step(params, tok, cache, len(prompt) + i)
+    return min(gaps)
+
+
+def reduced_archs(torch):
+    """The five archs of ``ARCH_GROUPS`` at reduced widths (d_model 64,
+    head_dim 16, two periods) with each one's published group (2 KV heads,
+    2 G query heads: G 2, 6, 16, 8, 8), fp32, biases and norm scales drawn
+    from a seed, gemma2's softcaps at 2.0 and its window of 16 below three
+    of the four prompts: the paged engine on the card (B1) gives the CPU's
+    greedy tokens (plain versions, which the CPU tests hold to the JAX
+    package), and for gemma2 so do the dense engine (B2) and the serial
+    path (B4, B3). Each record carries the smallest top-2 logit gap of the
+    CPU's serial steps."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.serial import serial_reference
+
+    sched = dict(chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
+                 max_concurrent_prefills=2, kv_block_size=4, num_kv_blocks=16)
+    new, max_len = 12, 64
+    for arch, g in ARCH_GROUPS.items():
+        kw = dict(n_heads=2 * g, n_kv_heads=2)
+        if arch == "gemma2-2b":
+            kw.update(attn_logit_softcap=2.0, final_logit_softcap=2.0)
+        cfg = dataclasses.replace(reduce_config(get_config(arch), periods=2), **kw)
+        cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        params = _drawn_leaves(torch, cpu_model.init(gen), gen)
+        model = build_model(cfg, dtype=torch.float32, device="cuda")
+        cuda_params = _to(params, "cuda")
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 30)]
+        kernels = ("paged", "dense") if arch == "gemma2-2b" else ("paged",)
+        outs, launches, steps, plain = {}, {}, {}, 0
+        for kernel in kernels:
+            for device, m, p in (("cpu", cpu_model, params), ("cuda", model, cuda_params)):
+                eng = _engine_class()(m, p, SchedulerConfig(**sched), max_len=max_len,
+                                      attn_kernel=kernel, device=device)
+                for rid, prompt in enumerate(prompts):
+                    eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+                reset_counts()
+                eng.run(max_steps=400)
+                counts, p_calls = read_counts()
+                key = f"{kernel}_{device}"
+                outs[key] = [eng.scheduler.requests[r].output for r in range(len(prompts))]
+                steps[key] = eng.steps_run
+                if device == "cuda":
+                    launches[kernel], plain = counts, plain + p_calls
+        if arch == "gemma2-2b":
+            outs["serial_cpu"] = [serial_reference(cpu_model, params, p, new, max_len=max_len)
+                                  for p in prompts]
+            reset_counts()
+            outs["serial_cuda"] = [serial_reference(model, cuda_params, p, new,
+                                                    max_len=max_len) for p in prompts]
+            launches["serial"], p_calls = read_counts()
+            plain += p_calls
+        L = cfg.n_layers
+        rec = dict(phase="reduced_archs", arch=arch, layers=L, heads=cfg.n_heads,
+                   kv_heads=cfg.n_kv_heads, group=g, head_dim=cfg.head_dim, dtype="float32",
+                   steps=steps, launches=launches, plain_cuda_calls=plain,
+                   min_top2_gap=min(_serial_gap(torch, cpu_model, params, p, new, max_len)
+                                    for p in prompts),
+                   tokens_identical={k[:-5]: outs[k] == outs[k[:-5] + "_cpu"]
+                                     for k in outs if k.endswith("_cuda")})
+        rec["ok"] = (all(rec["tokens_identical"].values()) and plain == 0
+                     and launches["paged"]["mixed_paged_attention"] == L * steps["paged_cuda"]
+                     and steps["paged_cuda"] == steps["paged_cpu"]
+                     and all(len(o) == new for o in outs["paged_cuda"]))
+        if arch == "gemma2-2b":
+            rec["ok"] = (rec["ok"] and launches["dense"]["paged_attention"] > 0
+                         and launches["serial"]["flash_attention"] == L * len(prompts)
+                         and launches["serial"]["decode_attention"]
+                         == L * len(prompts) * (new - 1))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"reduced_archs {arch}: {rec} {outs}")
+
+
+def full_model(torch, arch="llama3.1-8b", layers=None):
+    """A model at its published widths, bf16, weights drawn on the card from
+    seed 0, at its published depth or, with ``layers``, its first layers
+    (``launch.serve.depth_cut``): Llama3.1-8B (all 32 layers; shared by
+    serve, serve_dense and serial), Mamba2-2.7B (all 64; serve_mamba),
+    gemma2-2b (all 26; its three paths) or an arch of ``ARCH_SERVES``."""
     from repro_torch.configs import get_config
+    from repro_torch.launch.serve import depth_cut
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
-    model = build_model(get_config(arch), dtype=torch.bfloat16, device="cuda")
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if layers is not None:
+        cfg = depth_cut(cfg, layers)
+    model = build_model(cfg, dtype=torch.bfloat16, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     torch.cuda.synchronize()
     return model, params, dict(init_s=time.perf_counter() - t0,
-                               weight_gib=torch.cuda.memory_allocated() / 2**30)
+                               weight_gib=torch.cuda.memory_allocated() / 2**30,
+                               published_layers=published,
+                               reduced=[] if layers is None else
+                               [f"depth: {layers} of {published} layers"])
 
 
-def serve_prompts(vocab):
-    """SERVE's seeded requests: prompt lengths, then each prompt's tokens."""
+def serve_prompts(vocab, c=SERVE):
+    """A workload's seeded requests (SERVE's by default): prompt lengths,
+    then each prompt's tokens."""
     import numpy as np
 
-    c = SERVE
     rng = np.random.default_rng(0)
     lens = rng.integers(c["prompt_lo"], c["prompt_hi"] + 1, c["requests"])
     return [rng.integers(0, vocab, int(n)).tolist() for n in lens]
@@ -1518,8 +1832,9 @@ def read_counts():
     return {fn.__name__: fn.launches for fn in wrappers}, sum(fn.cuda_calls for fn in plains)
 
 
-def serve_engine(torch, model, params, attn_kernel):
-    """An engine with SERVE's settings and SERVE's requests submitted:
+def serve_engine(torch, model, params, attn_kernel, c=SERVE):
+    """An engine with a workload's settings and requests submitted (SERVE's
+    by default):
     ``paged`` over a page pool sized by the launcher's rule, ``dense`` over
     a slot cache (for Mamba2, the two-call path over its fixed state).
     Returns (engine, pool pages, pool basis, prompt lengths)."""
@@ -1527,7 +1842,6 @@ def serve_engine(torch, model, params, attn_kernel):
     from repro_torch.launch.serve import sized_kv_pool
     from repro_torch.serving.request import Request
 
-    c = SERVE
     cfg = model.cfg
     dev = torch.device("cuda")
     pool, basis = None, "dense slot cache" if cfg.n_attn_layers else "two-call state"
@@ -1538,14 +1852,14 @@ def serve_engine(torch, model, params, attn_kernel):
         chunk_size=c["chunk"], max_decode_batch=c["max_batch"],
         max_concurrent_prefills=c["max_prefills"], kv_block_size=c["page"],
         num_kv_blocks=pool), max_len=c["max_len"], attn_kernel=attn_kernel, device=dev)
-    prompts = serve_prompts(cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size, c)
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=c["max_new"]))
     return eng, pool, basis, [len(p) for p in prompts]
 
 
-def dense_engine_check(torch, model, params):
-    """SERVE's workload through the dense engine at full width, checked
+def dense_engine_check(torch, model, params, c=SERVE, phase="serve_dense_check"):
+    """A workload (SERVE's by default) through the dense engine at full width, checked
     before ``serve_dense`` times it: every layer's B2 call of the first step
     that carries prefill chunks beside decode rows (the chunks' rows in
     multi-row tiles on the tensor cores, unsplit), and of the first
@@ -1558,7 +1872,7 @@ def dense_engine_check(torch, model, params):
     from repro_torch.kernels.paged_attention import paged_attention
 
     L = model.cfg.n_layers
-    eng, _, _, _ = serve_engine(torch, model, params, "dense")
+    eng, _, _, _ = serve_engine(torch, model, params, "dense", c)
     steps = {"prefill": [], "decode": []}  # each checked call's record
     state = dict(calls=0, kind=None)
 
@@ -1587,7 +1901,7 @@ def dense_engine_check(torch, model, params):
             eng.step(now=float(eng.steps_run))
     finally:
         packed.paged_attention = paged_attention
-    rec = dict(phase="serve_dense_check", steps_run=eng.steps_run,
+    rec = dict(phase=phase, arch=model.cfg.name, steps_run=eng.steps_run,
                **{kind: dict(calls_checked=len(v), **{key: v[0][key] if v else None
                                                       for key in ("rows", "n_tiles", "n_split")},
                              tol_used_max=max((c["tol_used"] for c in v), default=None))
@@ -1600,27 +1914,30 @@ def dense_engine_check(torch, model, params):
     del eng
     torch.cuda.empty_cache()
     if not rec["ok"]:
-        raise AssertionError(f"serve_dense_check: {rec}")
+        raise AssertionError(f"{phase}: {rec}")
 
 
-def serve(torch, smi, model, params, setup, attn_kernel="paged"):
-    """SERVE's workload through the engine: ``paged`` (B1, the main path;
-    then a profiled window) or ``dense`` (B2, the dense fallback) for
-    Llama3.1-8B; for Mamba2-2.7B the two-call path (B5 in every layer of
-    every prefill segment; then a profiled window)."""
+def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=None,
+          profile=True):
+    """A workload (SERVE's by default) through the engine: ``paged`` (B1,
+    the main path; then a profiled window) or ``dense`` (B2, the dense
+    fallback) for an attention arch; for Mamba2-2.7B the two-call path (B5
+    in every layer of every prefill segment; then a profiled window).
+    ``phase`` names the record (default: serve, serve_dense or
+    serve_mamba); ``profile`` False skips the profiled window."""
     import numpy as np
 
     from repro_torch.serving.request import State
 
-    c = SERVE
     cfg = model.cfg
-    eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel)
+    eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel, c)
     if eng.two_call:
-        phase, kernel = "serve_mamba", "ssd_chunk_scan"
+        default, kernel = "serve_mamba", "ssd_chunk_scan"
     elif attn_kernel == "paged":
-        phase, kernel = "serve", "mixed_paged_attention"
+        default, kernel = "serve", "mixed_paged_attention"
     else:
-        phase, kernel = "serve_dense", "paged_attention"
+        default, kernel = "serve_dense", "paged_attention"
+    phase = phase or default
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1683,7 +2000,7 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged"):
         raise AssertionError(f"{rec['phase']}: {rec}")
     del eng
     torch.cuda.empty_cache()
-    if phase != "serve_dense":
+    if profile and attn_kernel != "dense":
         profile_serve(torch, model, params, phase, kernel)
     return rec
 
@@ -1911,10 +2228,11 @@ def reduced_serial(torch):
         raise AssertionError(f"reduced_serial: {rec} {outs}")
 
 
-def serial(torch, smi, model, params, served):
-    """SERVE's 8 requests served one at a time at full width (B4 prefill of
-    each whole prompt, then B3 per token over a 1 GiB dense cache): the
-    serial execution the paper's packing is measured against. The first
+def serial(torch, smi, model, params, served, c=SERVE, phase="serial"):
+    """A workload's requests (SERVE's by default) served one at a time at
+    full width (B4 prefill of each whole prompt, then B3 per token over a
+    dense cache of max_len): the serial execution the paper's packing is
+    measured against. The first
     request's attention calls are also computed by the plain version on the
     same bf16 tensors and held to the bf16 row tolerance."""
     import numpy as np
@@ -1924,9 +2242,8 @@ def serial(torch, smi, model, params, served):
     from repro_torch.models import attention
     from repro_torch.serving.serial import serial_tokens
 
-    c = SERVE
     cfg = model.cfg
-    prompts = serve_prompts(cfg.vocab_size)
+    prompts = serve_prompts(cfg.vocab_size, c)
     used, nonfinite = [], [0]
     real_flash, real_decode = ops.flash_attention_bshd, ops.decode_attention_bhd
 
@@ -1982,7 +2299,7 @@ def serial(torch, smi, model, params, served):
                            for a, b in zip(o, s_)]))
     L = cfg.n_layers
     rec = dict(
-        phase="serial", arch=cfg.name, layers=L, dtype="bfloat16", requests=len(prompts),
+        phase=phase, arch=cfg.name, layers=L, dtype="bfloat16", requests=len(prompts),
         prompt_lens=[len(p) for p in prompts], max_new_tokens=c["max_new"],
         max_len=c["max_len"], run_s=run_s, prefill_tokens=prefill_tok, decode_tokens=decode_tok,
         tok_per_s=tok_per_s, prefill_ms=prefill_ms,
@@ -2005,7 +2322,7 @@ def serial(torch, smi, model, params, served):
                  and all(len(o) == c["max_new"] for o in outs))
     emit(rec)
     if not rec["ok"]:
-        raise AssertionError(f"serial: {rec}")
+        raise AssertionError(f"{phase}: {rec}")
     return rec
 
 
@@ -2133,11 +2450,14 @@ def main() -> int:
 
     parity = kernel_parity(torch)
     parity.update(single_query_and_flash_parity(torch))
+    parity.update(group_parity(torch))
     parity.update(ssd_parity(torch))
+    b5_scratch_checks(torch)
     reduced_serve(torch)
     engine_bf16(torch)
     reduced_serial(torch)
     reduced_two_call(torch)
+    reduced_archs(torch)
     model, params, setup = full_model(torch)
     served = serve(torch, smi, model, params, setup)
     dense_engine_check(torch, model, params)
@@ -2151,19 +2471,45 @@ def main() -> int:
     served_mamba = serve(torch, smi, model, params, setup, attn_kernel="auto")
     del model, params
     torch.cuda.empty_cache()
+    # gemma2-2b at full depth through its three paths, every prompt past
+    # its local window; then the other archs through the paged engine
+    model, params, setup = full_model(torch, "gemma2-2b")
+    arch_runs = [serve(torch, smi, model, params, setup, c=GEMMA2_SERVE, phase="serve_gemma2",
+                       profile=False)]
+    dense_engine_check(torch, model, params, GEMMA2_SERVE, "serve_dense_gemma2_check")
+    arch_runs.append(serve(torch, smi, model, params, setup, attn_kernel="dense",
+                           c=GEMMA2_SERVE, phase="serve_dense_gemma2"))
+    arch_runs.append(serial(torch, smi, model, params, arch_runs[0], GEMMA2_SERVE,
+                            "serial_gemma2"))
+    del model, params
+    torch.cuda.empty_cache()
+    for phase, arch, layers in ARCH_SERVES:
+        model, params, setup = full_model(torch, arch, layers)
+        arch_runs.append(serve(torch, smi, model, params, setup, phase=phase, profile=False))
+        del model, params
+        torch.cuda.empty_cache()
 
     # each kernel: its launches on the main path that runs it, timed at that
     # path's shapes (the first one heads the line); plain-version calls on
     # the card summed over those paths
     paths = {"mixed_paged_attention": (served, ["mixed_bf16", "gemma2_mixed_bf16",
-                                                "decode16_bf16", "decode_long_bf16"]),
+                                                "decode16_bf16", "decode_long_bf16",
+                                                "g6_mixed_bf16", "g6_decode16_bf16",
+                                                "g16_mixed_bf16", "g16_decode16_bf16"]),
              "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16",
                                                 "b2_gemma2_dense_engine_bf16",
-                                                "b2_gemma2_dense_prefill_bf16"]),
-             "decode_attention": (serial_rec, ["b3_serial_bf16", "b3_gemma2_serial_bf16"]),
+                                                "b2_gemma2_dense_prefill_bf16",
+                                                "b2_g6_dense_engine_bf16",
+                                                "b2_g6_dense_prefill_bf16",
+                                                "b2_g16_dense_engine_bf16",
+                                                "b2_g16_dense_prefill_bf16"]),
+             "decode_attention": (serial_rec, ["b3_serial_bf16", "b3_gemma2_serial_bf16",
+                                               "b3_g6_serial_bf16"]),
              "flash_attention": (serial_rec, ["b4_prompt4096_bf16", "b4_prompt1000_bf16",
-                                              "b4_gemma2_prompt6000_bf16"]),
+                                              "b4_gemma2_prompt6000_bf16",
+                                              "b4_g6_prompt4096_bf16", "b4_g16_prompt4096_bf16"]),
              "ssd_chunk_scan": (served_mamba, ["b5_s512_bf16", "b5_s100_bf16"])}
+    runs = [served, served_dense, serial_rec, served_mamba] + arch_runs
     lines = []
     for kname, (source, replaces) in KERNELS.items():
         path, cases = paths[kname]
@@ -2179,6 +2525,10 @@ def main() -> int:
             timing=main_case["timing"], kernel_parts=main_case["kernel_parts"],
             event_ms=main_case["kernel_event_ms"], host_us=main_case["kernel_host_us"],
             shape_case=cases[0], main_path=path["phase"], plan=main_case.get("plan"),
+            # every path that launched the kernel, each counted from 0 just
+            # before it ran
+            launches_by_path={r["phase"]: r["launches_by_kernel"][kname] for r in runs
+                              if r["launches_by_kernel"].get(kname)},
             main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],
                                   plain_ms=parity[n]["plain_ms"],
                                   bound_ms=parity[n]["bound_ms"],
@@ -2191,7 +2541,8 @@ def main() -> int:
             tol_used_all_cases=max(r["tol_used"] for r in parity.values()
                                    if r["kernel"] == kname)))
     emit({"kernels": lines})
-    if not all(k["launches"] > 0 and k["plain_cuda_calls"] == 0 for k in lines):
+    if not all(k["launches"] > 0 and k["plain_cuda_calls"] == 0 for k in lines) \
+            or any(r["plain_cuda_calls"] for r in runs):
         raise AssertionError(f"a kernel of a main path did not launch: {lines}")
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -39,8 +39,13 @@
 //     bytes (168 MB at 4096 tokens); the ring, sized to the chunks in
 //     flight, stays in the 50 MB L2. A slot is overwritten only after the
 //     item that reads its previous tenant says so (`consumed`). Flags carry
-//     the call's epoch, so nothing is reset between calls: the last CTA to
-//     finish zeroes the ticket;
+//     the call's epoch, so nothing is reset between calls. The epoch is a
+//     word of the scratch, not an argument: every CTA reads it when it
+//     starts, and the last CTA to finish (every item done) zeroes the
+//     ticket and moves the word on. A launch captured in a CUDA graph thus
+//     tags its flags anew on every replay and never takes a flag of the
+//     replay before; at the wrap of its 32 bits that CTA zeroes the flags
+//     and starts again from 1;
 //   * bf16 inputs (serving): the products (C B^T, W x, S_c, C h) run on the
 //     tensor cores (mma.sync m16n8k16), with W, x w and h split into two
 //     bf16 parts so the sums stay near fp32; fp32 inputs (the exactness
@@ -113,7 +118,8 @@ Schedule schedule(int batch, int seq, int nh, int groups, int hd, int ds, int dt
   s.n_items = (long long)s.nc * s.ipc;
   s.grid = (int)std::min<long long>(s.n_items, (long long)CTAS_PER_SM * sms);
   s.ring = s.nc < 2 ? 0 : std::min(s.nc - 1, std::max(2, (s.grid + s.ipc - 1) / s.ipc + 2));
-  // the scratch: the ticket and the count of finished CTAs (2 x u32), then
+  // the scratch: the ticket, the count of finished CTAs and the epoch (3 x
+  // u32 in 16 bytes; the epoch is nonzero, 1 when the scratch is made), then
   // the ready flags (u64, one per slot, item and warp) and the consumed
   // flags (one per slot and item), then the states (fp32, hs x DS_MAX per
   // slot and item, in the order the warps hold them), 16-byte aligned
@@ -137,8 +143,8 @@ struct Args {
   int batch, seq, nh, hd, rep, ds;
   long long x_sb, x_ss, x_sh, bc_sb, bc_ss, bc_sg, dt_sb, dt_ss, dt_sh;
   int nc, hs, slices, ipc, ring, n_items;
-  unsigned long long epoch;  // the call's epoch << 32: a flag's value is epoch | chunk
-  unsigned* counters;        // [0] the ticket, [1] CTAs finished
+  long long scratch_bytes;
+  unsigned* counters;  // [0] the ticket, [1] CTAs finished, [2] the epoch
   unsigned long long* ready;
   unsigned long long* consumed;
   float* states;
@@ -162,19 +168,57 @@ __device__ __forceinline__ Item item_of(const Args& a, int t) {
   return it;
 }
 
-// Thread 0 takes the CTA's next ticket; -1 when none is left. The last CTA
-// to find none zeroes the counters for the next call. A CTA takes its next
-// ticket while it works on the current item (s_tk[2], alternating), which
-// the schedule's argument allows: that item's ticket is the larger.
+// The call's epoch << 32 (a flag's value is epoch | chunk), read from the
+// scratch by thread 0 of each CTA before its first ticket (`start_call`).
+__shared__ unsigned long long s_epoch;
+
+// Thread 0 takes the CTA's next ticket; -1 when none is left. A CTA takes
+// its next ticket while it works on the current item (s_tk[2],
+// alternating), which the schedule's argument allows: that item's ticket is
+// the larger.
 __device__ __forceinline__ int take_ticket(const Args& a) {
   const unsigned t = atomicAdd(a.counters, 1u);
-  if (t < (unsigned)a.n_items) return int(t);
+  return t < (unsigned)a.n_items ? int(t) : -1;
+}
+
+// Thread 0, as the CTA starts: the call's epoch, then the first ticket. The
+// last CTA to finish moves the epoch word on only after every CTA has
+// counted itself finished, which each does after this read.
+__device__ __forceinline__ int start_call(const Args& a) {
+  const unsigned epoch = *(volatile unsigned*)(a.counters + 2);
+  if (epoch == 0u) __trap();  // a scratch the wrapper did not make: flags of 0 would match
+  s_epoch = (unsigned long long)epoch << 32;
+  return take_ticket(a);
+}
+
+// Every thread, after the CTA's last item. The CTA that finishes last (all
+// others have left their loops, so no item is running) readies the scratch
+// for the next call: the ticket and the count to 0, the epoch word to the
+// next epoch. The flags hold 32 bits of the epoch: where it would wrap to 0,
+// the CTA zeroes every flag and state first (no flag of this epoch may
+// match one 2^32 calls on) and the next epoch is 1.
+__device__ void finish_call(const Args& a) {
+  __shared__ int s_last;
+  __syncthreads();  // the CTA's warps are done
+  if (threadIdx.x == 0) {
+    __threadfence();
+    s_last = atomicAdd(a.counters + 1, 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
   __threadfence();
-  if (atomicAdd(a.counters + 1, 1u) == gridDim.x - 1) {
+  const unsigned next = unsigned(s_epoch >> 32) + 1u;
+  if (next == 0u) {
+    uint4* body = reinterpret_cast<uint4*>(a.counters) + 1;  // past the 16-byte header
+    for (long long i = threadIdx.x; i < a.scratch_bytes / 16 - 1; i += blockDim.x)
+      body[i] = make_uint4(0u, 0u, 0u, 0u);
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
     a.counters[0] = 0;
     a.counters[1] = 0;
+    a.counters[2] = next == 0u ? 1u : next;
   }
-  return -1;
 }
 
 __device__ __forceinline__ unsigned long long ld_acquire(const unsigned long long* p) {
@@ -204,9 +248,9 @@ __device__ __forceinline__ long long slot_of(const Args& a, int c, int u) {
 // chunk writes has been read.
 __device__ __forceinline__ void wait_carry(const Args& a, const Item& it, int warp) {
   if (it.c > 0)
-    spin(a.ready + slot_of(a, it.c - 1, it.u) * WARPS + warp, a.epoch | unsigned(it.c - 1));
+    spin(a.ready + slot_of(a, it.c - 1, it.u) * WARPS + warp, s_epoch | unsigned(it.c - 1));
   if (it.c < a.nc - 1 && it.c >= a.ring)
-    spin(a.consumed + slot_of(a, it.c, it.u), a.epoch | unsigned(it.c - a.ring));
+    spin(a.consumed + slot_of(a, it.c, it.u), s_epoch | unsigned(it.c - a.ring));
 }
 
 // Lane 0 of a warp, after __syncwarp follows the warp's stores of its part
@@ -215,13 +259,13 @@ __device__ __forceinline__ void wait_carry(const Args& a, const Item& it, int wa
 // the flag (and then passes its own warp barrier) sees every one.
 __device__ __forceinline__ void publish_ready(const Args& a, const Item& it, int warp) {
   if (it.c < a.nc - 1)
-    st_release(a.ready + slot_of(a, it.c, it.u) * WARPS + warp, a.epoch | unsigned(it.c));
+    st_release(a.ready + slot_of(a, it.c, it.u) * WARPS + warp, s_epoch | unsigned(it.c));
 }
 
 // Thread 0, after a barrier that follows every warp's loads of the start
 // state: its slot may be written again.
 __device__ __forceinline__ void publish_consumed(const Args& a, const Item& it) {
-  if (it.c > 0) st_release(a.consumed + slot_of(a, it.c - 1, it.u), a.epoch | unsigned(it.c - 1));
+  if (it.c > 0) st_release(a.consumed + slot_of(a, it.c - 1, it.u), s_epoch | unsigned(it.c - 1));
 }
 
 // A ring slot, in the order the warps hold the state: thread (w, l)'s j-th
@@ -321,7 +365,7 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM) ssd_chunk_scan_f32_kernel(con
   const float* cg = static_cast<const float*>(a.cm);
   float* yg = static_cast<float*>(a.y);
 
-  if (tid == 0) s_tk[0] = take_ticket(a);
+  if (tid == 0) s_tk[0] = start_call(a);
   __syncthreads();
   for (int t = s_tk[0], iter = 0; t >= 0; ++iter) {
     if (tid == 0) s_tk[(iter + 1) & 1] = take_ticket(a);
@@ -444,6 +488,7 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM) ssd_chunk_scan_f32_kernel(con
     __syncthreads();  // the next item restages every operand
     t = t_next;
   }
+  finish_call(a);
 }
 
 // ---------------------------------------------------------------------------
@@ -536,7 +581,7 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM) ssd_chunk_scan_mma_kernel(con
   const int rb = warp >> 1, ch = warp & 1, r0 = 16 * rb + gid;  // W and y tiles
   const int hr = 16 * (warp & 3), hc = 64 * (warp >> 2);         // S_c and state tiles
 
-  if (tid == 0) s_tk[0] = take_ticket(a);
+  if (tid == 0) s_tk[0] = start_call(a);
   __syncthreads();
   for (int t = s_tk[0], iter = 0; t >= 0; ++iter) {
     if (tid == 0) s_tk[(iter + 1) & 1] = take_ticket(a);
@@ -725,6 +770,7 @@ __global__ void __launch_bounds__(NT, CTAS_PER_SM) ssd_chunk_scan_mma_kernel(con
     if (tid == 0) publish_consumed(a, it);
     t = t_next;
   }
+  finish_call(a);
 }
 
 cudaError_t launch(const Args& a, int dtype, int grid, cudaStream_t stream) {
@@ -769,9 +815,10 @@ extern "C" int ssd_chunk_scan_scratch_layout(int batch, int seq, int nh, int hd,
 // ds) sharing strides bc_sb, bc_ss, bc_sg; last axes contiguous. dt: (B, S,
 // nh) fp32, strides dt_sb, dt_ss, dt_sh. A: (nh,) fp32. h0 (or null) and hT:
 // (B, nh, hd, ds) fp32 contiguous, not aliased. y: (B, S, nh, hd) contiguous.
-// scratch: at least the layout's bytes, zeroed when first made and used by
-// one call at a time; epoch: 1 + the number of calls it has served since
-// (below 2^32). dtype: 0 = float32, 1 = bfloat16 (x, B, C and y). One launch.
+// scratch: at least the layout's bytes, made zero but for its epoch word
+// (the third u32), which is 1, then left to the kernel, and used by one
+// stream only: the calls that share it run one at a time. dtype: 0 =
+// float32, 1 = bfloat16 (x, B, C and y). One launch.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int ssd_chunk_scan_launch(const void* x, const void* dt, const void* A, const void* bm,
                                      const void* cm, const void* h0, void* y, void* hT, int batch,
@@ -779,10 +826,8 @@ extern "C" int ssd_chunk_scan_launch(const void* x, const void* dt, const void* 
                                      long long x_ss, long long x_sh, long long bc_sb,
                                      long long bc_ss, long long bc_sg, long long dt_sb,
                                      long long dt_ss, long long dt_sh, void* scratch,
-                                     long long scratch_bytes, unsigned epoch, int sms, int dtype,
-                                     void* stream) {
-  if (!valid_shape(batch, seq, nh, hd, groups, ds, dtype, sms) || epoch == 0)
-    return int(cudaErrorInvalidValue);
+                                     long long scratch_bytes, int sms, int dtype, void* stream) {
+  if (!valid_shape(batch, seq, nh, hd, groups, ds, dtype, sms)) return int(cudaErrorInvalidValue);
   const Schedule s = schedule(batch, seq, nh, groups, hd, ds, dtype, sms);
   if (scratch == nullptr || scratch_bytes < s.total ||
       reinterpret_cast<uintptr_t>(scratch) % 16)
@@ -825,7 +870,7 @@ extern "C" int ssd_chunk_scan_launch(const void* x, const void* dt, const void* 
   a.ipc = s.ipc;
   a.ring = s.ring;
   a.n_items = int(s.n_items);
-  a.epoch = (unsigned long long)epoch << 32;
+  a.scratch_bytes = scratch_bytes;
   a.counters = reinterpret_cast<unsigned*>(base);
   a.ready = reinterpret_cast<unsigned long long*>(base + s.ready);
   a.consumed = reinterpret_cast<unsigned long long*>(base + s.consumed);

@@ -421,7 +421,8 @@ def ssd_chunk_schedule(batch, seq, nh, hd, groups, ds, *, bf16, sms):
     ``SSD_CTAS_PER_SM`` CTAs an SM. Chunk c's end state goes to ring slot
     ``c % ring`` (the last chunk's to hT); the ring is ``nc - 1`` slots when
     the chunks are few, else the chunks a full grid holds at once plus two.
-    ``nbytes``: the scratch (two counters, the ready flags of each slot's
+    ``nbytes``: the scratch (a 16-byte header of the ticket, the count of
+    finished CTAs and the epoch word, then the ready flags of each slot's
     ``SSD_WARPS`` warps, its consumed flag, its fp32 states at the widest
     state). ``groups`` and ``ds`` do not enter: an item is one head."""
     nc = -(-seq // SSD_CHUNK)

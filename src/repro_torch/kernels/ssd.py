@@ -16,13 +16,19 @@ output), and it masks a ragged last chunk itself.
 The kernel runs the chunks in parallel: work items (chunk, head, a slice of
 hd) taken from an atomic ticket in chunk-major order, each
 waiting for its predecessor chunk's end state only after the work that does
-not need it. The end states pass through a ring in one scratch a device,
-kept from call to call (``_scratch``): its size comes from the kernel
-source's ``ssd_chunk_scan_scratch_layout`` (the Python copy of that schedule
-is ``ref.ssd_chunk_schedule``), it is zeroed when first made, and each call
-gets the next epoch number, with which the kernel tags its flags, so no call
-resets it. Calls that share a device's scratch must run one at a time (one
-stream). One wrapper call is one C call and one launch;
+not need it. The end states pass through a ring in a scratch kept from
+call to call, one for each (device, stream) (``_SCRATCH``), so calls on two
+streams never share one and calls on one stream run one at a time. Its
+size comes from the kernel source's ``ssd_chunk_scan_scratch_layout`` (the
+Python copy of that schedule is ``ref.ssd_chunk_schedule``); it is made
+zero but for its epoch word (``EPOCH_WORD``), which is 1. From then on the
+kernel owns it: each launch reads the epoch from that word, tags its flags
+with it, and its last CTA moves it on, so no call resets the scratch and a
+launch replayed from a CUDA graph tags its flags anew. A scratch grows when
+a larger call comes, but never while the stream is capturing: before
+capturing calls, size it with ``reserve_scratch`` for the largest call of
+the graph, on the capturing stream. A scratch a graph has captured is kept
+alive when it is replaced. One wrapper call is one C call and one launch;
 ``ssd_chunk_scan.launches`` counts them. hT is always a fresh tensor: it
 never aliases h0.
 """
@@ -30,7 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -47,7 +53,7 @@ def _launcher():
     lib = _build.load("ssd_chunk_scan")
     fn = lib.ssd_chunk_scan_launch
     i, ll, p = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p, ll, ctypes.c_uint, i, i, p]
+    fn.argtypes = [p] * 8 + [i] * 6 + [ll] * 9 + [p, ll, i, i, p]
     fn.restype = i
     layout = lib.ssd_chunk_scan_scratch_layout
     layout.argtypes = [i] * 8 + [ctypes.POINTER(ll)]
@@ -74,25 +80,54 @@ def schedule(batch: int, seq: int, nh: int, hd: int, groups: int, ds: int, dtype
     return dict(zip(SCHEDULE_KEYS, out))
 
 
+EPOCH_WORD = 2  # the scratch's third uint32: the epoch the kernel reads and moves on
+
+
 class _Scratch:
-    """One device's scratch: zeroed when made (or grown), then tagged anew by
-    each call's epoch."""
+    """One (device, stream)'s scratch: made zero with its epoch word at 1,
+    then left to the kernel. ``captured`` holds every tensor a graph capture
+    has used, so that growing never frees a pointer a graph replays."""
 
     def __init__(self):
         self.tensor: Optional[torch.Tensor] = None
-        self.epoch = 0
+        self.captured: List[torch.Tensor] = []
 
-    def take(self, device, nbytes: int):
+    def take(self, device, nbytes: int) -> torch.Tensor:
+        capturing = torch.cuda.is_current_stream_capturing()
         if self.tensor is None or self.tensor.numel() < nbytes:
+            if capturing:
+                raise RuntimeError(
+                    f"ssd_chunk_scan: the stream's scratch holds "
+                    f"{0 if self.tensor is None else self.tensor.numel()} bytes and this call "
+                    f"needs {nbytes}; a stream that captures a CUDA graph cannot grow it: call "
+                    "ssd.reserve_scratch on that stream before capturing")
             self.tensor = torch.zeros(nbytes, dtype=torch.uint8, device=device)
-        self.epoch += 1
-        if self.epoch >= 2**32:  # the flags hold 32 bits of it: start again from zeros
-            self.tensor.zero_()
-            self.epoch = 1
-        return self.tensor, self.epoch
+            self.tensor.view(torch.int32)[EPOCH_WORD] = 1
+        if capturing and not any(t is self.tensor for t in self.captured):
+            self.captured.append(self.tensor)
+        return self.tensor
 
 
-_SCRATCH: Dict[int, _Scratch] = {}
+_SCRATCH: Dict[Tuple[int, int], _Scratch] = {}
+
+
+def _scratch_of(dev: torch.device, stream) -> _Scratch:
+    return _SCRATCH.setdefault((dev.index, stream.cuda_stream), _Scratch())
+
+
+def reserve_scratch(batch: int, seq: int, nh: int, hd: int, groups: int, ds: int,
+                    dtype: torch.dtype = torch.bfloat16, stream=None) -> int:
+    """Size ``stream``'s scratch (default: the current stream) for a call of
+    these shapes, as a call would grow it. A CUDA graph that captures B5
+    calls captures the scratch's pointer, so reserve the largest call of the
+    graph on the capturing stream before the capture. Returns the scratch's
+    bytes."""
+    stream = torch.cuda.current_stream() if stream is None else stream
+    dev = stream.device
+    nbytes = schedule(batch, seq, nh, hd, groups, ds, DTYPE_CODES[dtype],
+                      _sm_count(dev.index))["nbytes"]
+    with torch.cuda.stream(stream):
+        return _scratch_of(dev, stream).take(dev, nbytes).numel()
 
 
 @functools.cache
@@ -151,15 +186,15 @@ def ssd_chunk_scan(x, dt, A, Bm, Cm, h0: Optional[torch.Tensor] = None
     code = DTYPE_CODES[x.dtype]
     sms = _sm_count(dev.index)
     nbytes = schedule(Bsz, S, nh, hd, G, ds, code, sms)["nbytes"]
-    scratch, epoch = _SCRATCH.setdefault(dev.index, _Scratch()).take(dev, nbytes)
+    stream = torch.cuda.current_stream(dev)
+    scratch = _scratch_of(dev, stream).take(dev, nbytes)
     y = torch.empty((Bsz, S, nh, hd), dtype=x.dtype, device=dev)
     hT = torch.empty((Bsz, nh, hd, ds), dtype=torch.float32, device=dev)
     fn, _, err_string = _launcher()
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
              None if h0 is None else h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
              Bsz, S, nh, hd, G, ds, *x.stride()[:3], *Bm.stride()[:3], *dt.stride(),
-             scratch.data_ptr(), scratch.numel(), epoch, sms, code,
-             torch.cuda.current_stream(dev).cuda_stream)
+             scratch.data_ptr(), scratch.numel(), sms, code, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_chunk_scan launch failed: {err_string(err).decode()}")
     ssd_chunk_scan.launches += 1

@@ -12,12 +12,16 @@ is the size. ``--num-kv-blocks`` overrides both. ``--attn-kernel dense``
 serves from a dense ``(max_batch + 1, max_len)`` slot cache instead and
 sizes no pool. An attention-free arch (``--arch mamba2-2.7b``) runs the
 two-call path over a fixed ``(max_batch + 1)``-row state and sizes no pool
-either; the launcher prints the state's bytes. The flags mirror the JAX launcher's; swap preemption and the
-prefix cache are not ported yet and raise.
+either; the launcher prints the state's bytes. ``--layers N`` keeps an
+arch's published widths and runs its first N layers, for a model whose
+weights outgrow the card (llama3.1-70b: 141 GB in bf16). The flags mirror
+the JAX launcher's; swap preemption and the prefix cache are not ported
+yet and raise.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import signal
 import sys
 
@@ -41,6 +45,15 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # 512-row chunk's fp32 logits over a 128K vocabulary take 0.26 GB, its FFN
 # intermediates 0.04 GB; the rest is headroom for the caching allocator
 ACTIVATION_RESERVE = 4 * 2**30
+
+
+def depth_cut(cfg, layers: int):
+    """``cfg`` at its own widths with only its first ``layers`` layers (a
+    whole number of scan periods past the prefix)."""
+    if not cfg.n_prefix_layers < layers <= cfg.n_layers:
+        raise ValueError(f"{cfg.name}: {layers} layers is not in {cfg.n_prefix_layers + 1}.."
+                         f"{cfg.n_layers}")
+    return dataclasses.replace(cfg, n_layers=layers, layer_specs=cfg.layer_specs[:layers])
 
 
 def sized_kv_pool(cfg, device: torch.device, dtype: torch.dtype, max_batch: int,
@@ -70,6 +83,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run only the first N layers, at the published widths")
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
                     help="weights, activations and KV pool")
@@ -131,6 +146,8 @@ def main():
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduce_config(cfg)
+    if args.layers is not None:
+        cfg = depth_cut(cfg, args.layers)
     cfg = dropless(cfg)  # serving uses dropless MoE dispatch
     model = build_model(cfg, dtype=dtype, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))

@@ -186,55 +186,93 @@ def test_schedule_covers_every_item_once_in_chunk_major_order(shape, bf16):
         assert ref.ssd_item(t - s["ipc"], s, nh) == (c - 1, *rest)
 
 
-def simulate_carry(s, seed):
+EPOCH_WRAP = 2**32  # the flags hold 32 bits of the epoch
+
+
+def simulate_carry(s, seed, *, calls=2, word=1, epoch_from="scratch"):
     """The kernel's carry protocol under one random interleaving of its
-    CTAs: each CTA holds the ticket it works on and the next one it took,
-    does its item's carry-free part, then waits until chunk c-1 has
-    published (``ready``) and the slot it writes has been read by its
-    previous tenant's successor (``consumed``), reads its start state,
-    writes its end state and marks both. The ring's contents are kept as
-    the chunk each slot holds; every read must find its predecessor's state
-    there, and the run must end."""
+    CTAs, over ``calls`` calls on one scratch. Each CTA reads the call's
+    epoch from the scratch's epoch word as it starts, holds the ticket it
+    works on and the next one it took, does its item's carry-free part, then
+    waits until the flag of chunk c-1 reads (epoch, c-1) (``ready``) and the
+    slot it writes has been read by its previous tenant's successor
+    (``consumed``), reads its start state, writes its end state and sets
+    both flags; after its last item it counts itself finished, and the last
+    CTA to finish moves the word on, to 1 past 2^32 - 1 after zeroing every
+    flag and slot. The ring's slots and the flags also record the call that
+    wrote them (which the kernel cannot see): every read must find this
+    call's chunk c-1 there, and every call must end. ``epoch_from="argument"``
+    is the protocol before the word: an epoch fixed per launch, as a
+    replayed CUDA graph would repeat it. Returns the epochs the calls ran
+    at."""
     rng = np.random.default_rng(seed)
     nc, ipc, ring = s["nc"], s["ipc"], s["ring"]
-    slot = {}  # (slot, item) -> chunk whose end state it holds
-    ready, consumed = set(), set()  # (chunk, item)
-    ticket, done = 0, 0
+    slot = {}  # (slot, item) -> (call, chunk) whose end state it holds
+    ready, consumed = {}, {}  # (slot, item) -> (epoch, chunk, call)
+    epochs = []
+    for call in range(calls):
+        ticket, done, finished = 0, 0, 0
+        epoch = word if epoch_from == "scratch" else 1
+        epochs.append(epoch)
 
-    def take():
-        nonlocal ticket
-        ticket += 1
-        return ticket - 1 if ticket <= s["n_items"] else None
+        def take():
+            nonlocal ticket
+            ticket += 1
+            return ticket - 1 if ticket <= s["n_items"] else None
 
-    ctas = [[take(), "free", None] for _ in range(s["grid"])]  # [ticket, phase, next ticket]
-    while done < s["n_items"]:
-        runnable = []
-        for i, (t, phase, _) in enumerate(ctas):
-            if t is None:
+        def flag_reads(flags, c, u, want):
+            """Whether the flag of chunk c's slot reads (epoch, want), and if
+            so, that this call set it."""
+            val = flags.get((c % ring, u))
+            if val is None or val[:2] != (epoch, want):
+                return False
+            assert val[2] == call, f"call {call} took call {val[2]}'s flag for chunk {want}"
+            return True
+
+        ctas = [[take(), "free", None] for _ in range(s["grid"])]  # [ticket, phase, next]
+        while finished < s["grid"]:
+            runnable = []
+            for i, (t, phase, _) in enumerate(ctas):
+                if phase == "finished":
+                    continue
+                if t is not None and phase == "wait":
+                    c, u = divmod(t, ipc)
+                    if not ((c == 0 or flag_reads(ready, c - 1, u, c - 1)) and (
+                            c == nc - 1 or c < ring or flag_reads(consumed, c, u, c - ring))):
+                        continue
+                runnable.append(i)
+            assert runnable, f"no CTA can move: {ctas}"
+            i = int(rng.choice(runnable))
+            t, phase, _ = ctas[i]
+            if t is None:  # no item left: count itself finished
+                ctas[i][1] = "finished"
+                finished += 1
                 continue
             c, u = divmod(t, ipc)
-            if phase == "wait" and not ((c == 0 or (c - 1, u) in ready) and (
-                    c == nc - 1 or c < ring or (c - ring, u) in consumed)):
+            if phase == "free":  # take the next ticket; the part that needs no carried state
+                ctas[i] = [t, "wait", take()]
                 continue
-            runnable.append(i)
-        assert runnable, f"no CTA can move: {ctas}"
-        i = int(rng.choice(runnable))
-        t, phase, _ = ctas[i]
-        c, u = divmod(t, ipc)
-        if phase == "free":  # take the next ticket; the part that needs no carried state
-            ctas[i] = [t, "wait", take()]
-            continue
-        if c > 0:  # read chunk c - 1's end state
-            assert slot[((c - 1) % ring, u)] == c - 1
-        if c < nc - 1:
-            key = (c % ring, u)
-            assert key not in slot or (slot[key], u) in consumed
-            slot[key] = c
-            ready.add((c, u))
-        if c > 0:
-            consumed.add((c - 1, u))
-        ctas[i] = [ctas[i][2], "free", None]
-        done += 1
+            if c > 0:  # read chunk c - 1's end state
+                assert slot[((c - 1) % ring, u)] == (call, c - 1)
+            if c < nc - 1:
+                key = (c % ring, u)
+                assert key not in slot or slot[key][0] != call or \
+                    consumed.get(key, ())[:2] == (epoch, slot[key][1])
+                slot[key] = (call, c)
+                ready[key] = (epoch, c, call)
+            if c > 0:
+                consumed[((c - 1) % ring, u)] = (epoch, c - 1, call)
+            ctas[i] = [ctas[i][2], "free", None]
+            done += 1
+        assert done == s["n_items"]
+        if epoch_from == "scratch":  # the last CTA to finish
+            word = epoch + 1
+            if word == EPOCH_WRAP:
+                slot.clear()
+                ready.clear()
+                consumed.clear()
+                word = 1
+    return epochs
 
 
 @pytest.mark.parametrize("S,B,bf16,sms", [
@@ -248,6 +286,32 @@ def test_carry_protocol_ends_and_never_reads_an_overwritten_slot(S, B, bf16, sms
         assert s["ring"] >= 2
     for seed in range(3 if s["n_items"] <= 6000 else 1):  # interleavings
         simulate_carry(s, seed)
+
+
+@pytest.mark.parametrize("S,B,bf16,sms", [(512, 1, True, 132), (200, 1, True, 132)])
+def test_an_epoch_fixed_per_launch_takes_a_replayed_calls_flags(S, B, bf16, sms):
+    """The protocol before the epoch word, an epoch passed with the launch,
+    under a second call with the same epoch (a replayed CUDA graph): some
+    interleaving lets a wait take the first call's flag and read its state.
+    With the epoch read from the scratch, the same interleavings are safe."""
+    s = ref.ssd_chunk_schedule(B, S, 80, 64, 1, 128, bf16=bf16, sms=sms)
+    caught = 0
+    for seed in range(4):
+        simulate_carry(s, seed)
+        try:
+            simulate_carry(s, seed, epoch_from="argument")
+        except AssertionError:
+            caught += 1
+    assert caught > 0
+
+
+def test_epoch_word_wraps_to_one():
+    """From 2^32 - 1 the last CTA zeroes the flags and the slots and sets the
+    word to 1: the next calls run at epochs 1 and 2 and read only their own
+    states."""
+    s = ref.ssd_chunk_schedule(1, 600, 80, 64, 1, 128, bf16=True, sms=4)
+    assert s["ring"] >= 2 and s["nc"] > s["ring"] + 1  # slots are reused
+    assert simulate_carry(s, 0, calls=3, word=EPOCH_WRAP - 1) == [EPOCH_WRAP - 1, 1, 2]
 
 
 # ---------------------------------------------------------------------------

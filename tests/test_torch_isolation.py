@@ -23,7 +23,8 @@ PORT = SRC / "repro_torch"
 # listed import substitutions are made
 COPIES = [
     "configs/__init__.py", "configs/base.py", "configs/llama3_1_8b.py", "configs/mamba2_2_7b.py",
-    "configs/reduced.py",
+    "configs/reduced.py", "configs/gemma2_2b.py", "configs/qwen2_1_5b.py",
+    "configs/chatglm3_6b.py", "configs/qwen3_32b.py", "configs/llama3_1_70b.py",
     "serving/request.py", "serving/metrics.py", "serving/workload.py",
     "memory/__init__.py", "memory/block_allocator.py", "memory/tiers.py",
     "memory/prefix_cache.py", "memory/manager.py", "memory/prefetch_queue.py",
