@@ -66,6 +66,15 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   16, 8, 8), fp32, biases and norm scales drawn from a seed:
                   the paged engine on the card gives the CPU's greedy tokens,
                   and for gemma2 so do the dense engine and the serial path
+  reduced_a5      swap preemption (paged, dense and two-call), async staging on
+                  and off, the prefix cache with mid-block copies (one case
+                  copying into a page a swap-out of the same step gave up),
+                  and a fault plan with retries, on reduced Llama3.1-8B and
+                  Mamba2-2.7B in fp32 with tests/test_torch_a5.py's
+                  workloads: the engine on the card gives the CPU's greedy
+                  tokens and schedule, and every page (or slot row) a swap-in
+                  restored is bit-equal to the victim's page as its step found
+                  it, some under another physical page id
   serve           the port's Engine (paged, B1) on Llama3.1-8B at full width, all
                   32 layers, bf16, seeded random weights: 8 requests, 32 new
                   tokens each; then a profiled window (serve_profile)
@@ -76,6 +85,20 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   serial          the same 8 requests served one at a time (B4 prefill, B3
                   decode): the paper's serial baseline, and serve's speed-up
                   over it
+  serve_swap_sync, serve_swap
+                  SERVE's workload under a KV budget of 8192 tokens with swap
+                  preemption (4 swap-outs, 0.70 GiB each way), without and then
+                  with async staging on the engine's copy stream (each
+                  engine pinning its own host buffers): the swap steps and
+                  their ms, with and without the digests' device ms, D2H and
+                  H2D GB/s from CUDA events, each staged
+                  copy's share inside its step's kernel window, the bytes moved
+                  against the memory manager's, every restored page's digest
+                  against its swap-out's; the two runs' plans step by step and,
+                  where they match, their tokens
+  serve_prefix, serve_prefix_off
+                  8 prompts sharing 2008 tokens (not a whole number of pages)
+                  with the prefix cache (6 hits, 6 mid-block copies) and without
   micro           kernels_micro's two comparisons at its full shapes: dense (B3)
                   vs ragged paged (B2) decode, unified mixed (B1) vs per-token (B2)
   serve_mamba     SERVE's workload through the two-call engine on Mamba2-2.7B at
@@ -307,32 +330,35 @@ def device_ms(torch, fn, reps, warmup=2):
     launches, from torch.profiler (CUDA activity), each run after a 128 MB
     L2 flush whose kernel (``bitwise_not``) is left out. Unlike ``time_ms``
     it excludes the host's time to enqueue the call, which for a kernel of
-    tens of microseconds is most of a lone call's span. Falls back to
-    ``time_ms`` (and says so) if the trace shows no device time. Returns
-    (ms, how, {kernel name: ms per call}, {kernel name: launches the trace
-    recorded, against ``reps`` calls})."""
+    tens of microseconds is most of a lone call's span. A trace with no
+    device time is taken once more (CUPTI has returned an empty window on
+    the card); if the second is empty too, falls back to ``time_ms`` and
+    says so. Returns (ms, how, {kernel name: ms per call}, {kernel name:
+    launches the trace recorded, against ``reps`` calls})."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(32 * 2**20, dtype=torch.int32, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.bitwise_not_()
-            fn()
-        torch.cuda.synchronize()
-    # each kernel's mean time per launch, times its launches per call: a
-    # trace that lost some records (CUPTI's buffers can drop them) still
-    # gives each kernel's time, where dividing its total by ``reps`` would
-    # undercount it
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-              and "bitwise_not" not in e.key.lower() and e.self_device_time_total > 0]
-    parts = {e.key[:60]: e.self_device_time_total / 1e3 / e.count * max(1, round(e.count / reps))
-             for e in events}
-    if not parts:
-        return time_ms(torch, fn, reps, warmup), "events", {}, {}
-    return sum(parts.values()), "profiler", parts, {e.key[:60]: e.count for e in events}
+    for _attempt in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.bitwise_not_()
+                fn()
+            torch.cuda.synchronize()
+        # each kernel's mean time per launch, times its launches per call:
+        # a trace that lost some records (CUPTI's buffers can drop them)
+        # still gives each kernel's time, where dividing its total by
+        # ``reps`` would undercount it
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and "bitwise_not" not in e.key.lower() and e.self_device_time_total > 0]
+        parts = {e.key[:60]: e.self_device_time_total / 1e3 / e.count
+                 * max(1, round(e.count / reps)) for e in events}
+        if parts:
+            return sum(parts.values()), "profiler", parts, {e.key[:60]: e.count for e in events}
+    return time_ms(torch, fn, reps, warmup), "events", {}, {}
 
 
 def host_us(torch, fn, reps):
@@ -1832,11 +1858,14 @@ def read_counts():
     return {fn.__name__: fn.launches for fn in wrappers}, sum(fn.cuda_calls for fn in plains)
 
 
-def serve_engine(torch, model, params, attn_kernel, c=SERVE):
+def serve_engine(torch, model, params, attn_kernel, c=SERVE, sched=None, prompts=None,
+                 engine_cls=None):
     """An engine with a workload's settings and requests submitted (SERVE's
     by default):
     ``paged`` over a page pool sized by the launcher's rule, ``dense`` over
     a slot cache (for Mamba2, the two-call path over its fixed state).
+    ``sched`` adds scheduler settings (swap, the prefix cache), ``prompts``
+    replaces the workload's prompts and ``engine_cls`` the engine class.
     Returns (engine, pool pages, pool basis, prompt lengths)."""
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.launch.serve import sized_kv_pool
@@ -1848,11 +1877,12 @@ def serve_engine(torch, model, params, attn_kernel, c=SERVE):
     if attn_kernel == "paged":
         pool, basis = sized_kv_pool(cfg, dev, torch.bfloat16, c["max_batch"], c["max_len"],
                                     c["page"])
-    eng = _engine_class()(model, params, SchedulerConfig(
+    eng = (engine_cls or _engine_class())(model, params, SchedulerConfig(
         chunk_size=c["chunk"], max_decode_batch=c["max_batch"],
         max_concurrent_prefills=c["max_prefills"], kv_block_size=c["page"],
-        num_kv_blocks=pool), max_len=c["max_len"], attn_kernel=attn_kernel, device=dev)
-    prompts = serve_prompts(cfg.vocab_size, c)
+        num_kv_blocks=pool, **(sched or {})), max_len=c["max_len"], attn_kernel=attn_kernel,
+        device=dev)
+    prompts = prompts or serve_prompts(cfg.vocab_size, c)
     for rid, prompt in enumerate(prompts):
         eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=c["max_new"]))
     return eng, pool, basis, [len(p) for p in prompts]
@@ -1918,19 +1948,23 @@ def dense_engine_check(torch, model, params, c=SERVE, phase="serve_dense_check")
 
 
 def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=None,
-          profile=True):
+          profile=True, sched=None, prompts=None, engine_cls=None, extra=None):
     """A workload (SERVE's by default) through the engine: ``paged`` (B1,
     the main path; then a profiled window) or ``dense`` (B2, the dense
     fallback) for an attention arch; for Mamba2-2.7B the two-call path (B5
     in every layer of every prefill segment; then a profiled window).
     ``phase`` names the record (default: serve, serve_dense or
-    serve_mamba); ``profile`` False skips the profiled window."""
+    serve_mamba); ``profile`` False skips the profiled window. ``sched``,
+    ``prompts`` and ``engine_cls`` go to ``serve_engine``; ``extra(eng,
+    step_ms)``, after the timed run, returns more of the record, whose
+    ``a5_ok`` the run must also pass."""
     import numpy as np
 
     from repro_torch.serving.request import State
 
     cfg = model.cfg
-    eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel, c)
+    eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel, c, sched, prompts,
+                                          engine_cls)
     if eng.two_call:
         default, kernel = "serve_mamba", "ssd_chunk_scan"
     elif attn_kernel == "paged":
@@ -1994,7 +2028,10 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
     # the attention kernels launch once per layer and step; B5 once per
     # layer and prefill segment (the decode call is plain PyTorch)
     expect = cfg.n_layers * (segments if eng.two_call else eng.steps_run)
-    rec["ok"] = done and launches == expect and plain_cuda == 0 and eng.nonfinite == 0
+    if extra is not None:
+        rec.update(extra(eng, step_ms))
+    rec["ok"] = (done and launches == expect and plain_cuda == 0 and eng.nonfinite == 0
+                 and rec.get("a5_ok", True))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"{rec['phase']}: {rec}")
@@ -2326,6 +2363,445 @@ def serial(torch, smi, model, params, served, c=SERVE, phase="serial"):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# swap preemption, the prefix cache and async prefetch staging (ROADMAP A5)
+# ---------------------------------------------------------------------------
+
+# serve_swap / serve_swap_sync: SERVE with a KV budget of 8192 tokens, so
+# decodes are swapped out to the host and back; serve_prefix: SERVE's
+# settings over 8 prompts that share 2008 tokens (not a multiple of the
+# 16-token page: each resume copies its partial page)
+SWAP_SCHED = dict(kv_capacity_tokens=8192, preemption="swap")
+PREFIX_REQUESTS = dict(n=8, shared_len=2008, unique_len=600, max_new_tokens=32, jitter=100,
+                       seed=0)
+
+
+def page_digest(torch, x):
+    """One int64 per page (row) of ``x``: its bits as int32 words, weighted
+    by fixed pseudo-random factors below 2**16 and summed (no overflow), so a
+    changed, moved or swapped word changes it."""
+    words = x.reshape(x.shape[0], -1).view(torch.int32)
+    w = torch.randint(1, 1 << 16, (words.shape[1],), dtype=torch.int64,
+                      generator=torch.Generator().manual_seed(words.shape[1])).to(x.device)
+    return (words.to(torch.int64) * w).sum(dim=1)
+
+
+def _a5_engine_class(torch, digest):
+    """The checked engine, keeping every swap's pages (or slot rows) as the
+    step found them, before any of its device writes, and as the swap-in
+    left them, with their physical ids: whole copies, or with ``digest`` one
+    ``page_digest`` a page and leaf, kept on the device until the run's end.
+    With ``digest`` on the card, CUDA events time the digests' device work
+    of each step (``digest_events``), which the step's ms then include."""
+    base = _engine_class()
+
+    class A5Engine(base):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.trips = []  # [rid, ids out, pages out, ids in, pages in]
+            self.plans = []
+            self.out_pages = []  # per step: the physical ids its swap-outs gathered
+            self.digest_events = []  # (step, start, end) around each step's digests
+            self._before = {}
+            # host ms of each swap-out (its buffer's take included), buffer
+            # take, staged copy and swap-in, and the device memory segments
+            # (cudaMalloc calls) each staged copy added
+            self.host_ms = {"swap_out": [], "take": [], "stage": [], "swap_in": []}
+            self.stage_segments = []
+            take, took = self.host_pool.take, self.host_ms["take"]
+
+            def timed_take(nbytes):  # refers to no engine: no cycle keeps one alive
+                t = time.perf_counter()
+                buf = take(nbytes)
+                took.append((time.perf_counter() - t) * 1e3)
+                return buf
+
+            self.host_pool.take = timed_take
+
+        def _segments(self):
+            if not self.cuda:
+                return 0
+            return torch.cuda.memory_stats(self.device).get("segment.all.allocated", 0)
+
+        def _stage(self, plan, rid, entry):
+            before = self._segments()
+            t = time.perf_counter()
+            staged = super()._stage(plan, rid, entry)
+            self.host_ms["stage"].append((time.perf_counter() - t) * 1e3)
+            self.stage_segments.append(self._segments() - before)
+            return staged
+
+        def _pages(self, rid, slot, positions=None, record=None):
+            if self.attn_kernel != "paged":
+                ids, leaves = [slot], [v[slot:slot + 1] for layer in self.cache
+                                       for v in layer.values()]
+            else:
+                blocks = (record.table.blocks if record is not None
+                          else self.scheduler.mem.allocator.tables[rid].blocks)
+                ids = [blocks[i] for i in positions]
+                index = torch.tensor(ids, dtype=torch.long, device=self.device)
+                leaves = [v.index_select(0, index) for layer in self.cache
+                          for v in layer.values()]
+            return ids, [page_digest(torch, x) if digest else x.clone() for x in leaves]
+
+        def _timed_pages(self, plan, *args):
+            if not (digest and self.cuda):
+                return self._pages(*args)
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            got = self._pages(*args)
+            ev[1].record()
+            self.digest_events.append((plan.step, *ev))
+            return got
+
+        def _refuse_round_trips(self, plan):
+            # the engine's first call after planning: no device write of the
+            # step has run yet, so the victims' pages are as the step found them
+            super()._refuse_round_trips(plan)
+            self._before = {}
+            self.out_pages.append([])
+            for rid, slot in plan.swapped_out:
+                rec = (self.scheduler.mem.swapped[rid].record if self.attn_kernel == "paged"
+                       else None)
+                self._before[rid] = self._timed_pages(plan, rid, slot,
+                                                      rec and rec.spilled_indices, rec)
+
+        def _swap_out(self, plan, rid, slot):
+            ids, pages = self._before.pop(rid)
+            t = time.perf_counter()
+            super()._swap_out(plan, rid, slot)
+            self.host_ms["swap_out"].append((time.perf_counter() - t) * 1e3)
+            self.trips.append([rid, ids, pages, None, None])
+            self.out_pages[-1].extend(ids)
+
+        def _swap_in(self, plan, rid, slot):
+            idx = self.swap_store[rid]["idx"]
+            t = time.perf_counter()
+            super()._swap_in(plan, rid, slot)
+            self.host_ms["swap_in"].append((time.perf_counter() - t) * 1e3)
+            trip = next(t for t in self.trips if t[0] == rid and t[3] is None)
+            trip[3], trip[4] = self._timed_pages(plan, rid, slot, idx)
+
+        def reused_copy_pages(self):
+            """(step, page) of each prefix copy whose destination is a page
+            a swap-out of the same step gathered."""
+            return [(p.step, c[2]) for p, out in zip(self.plans, self.out_pages)
+                    for c in p.prefix_copies if c[2] in out]
+
+        def digest_ms(self):
+            """Device ms of each step's digests (after a synchronize)."""
+            got = {}
+            for step, a, b in self.digest_events:
+                got[step] = got.get(step, 0.0) + a.elapsed_time(b)
+            return got
+
+        def step(self, now=0.0):
+            plan = super().step(now)
+            if plan is not None:
+                self.plans.append(plan)
+            return plan
+
+        def round_trips(self):
+            """(restores checked, all bit-equal, any relocated)."""
+            done = [t for t in self.trips if t[3] is not None]
+            equal = all(len(t[1]) == len(t[3]) and all(torch.equal(a, b)
+                                                       for a, b in zip(t[2], t[4]))
+                        for t in done)
+            return dict(swap_outs_seen=len(self.trips), restores_checked=len(done),
+                        restored_bit_equal=equal and len(done) == len(self.trips),
+                        relocated=any(t[1] != t[3] for t in done))
+
+    return A5Engine
+
+
+def plan_key(plan):
+    """What a step computes: its decode rows and its prefill segments."""
+    return (list(plan.decode_rids),
+            [(s.rid, s.start, s.length) for s in plan.prefill_segments])
+
+
+def copy_timing(torch, eng):
+    """The engine's ``copy_log`` resolved after a synchronize: each swap
+    copy's ms and GB/s, and for each staged copy the share of its time that
+    lies inside the kernel window (first kernel to last) of the step that
+    issued it."""
+    torch.cuda.synchronize()
+    log = eng.copy_log
+    ref = log[0]["start"]
+    windows = {r["step"]: (ref.elapsed_time(r["start"]), ref.elapsed_time(r["end"]))
+               for r in log if r["kind"] == "kernels"}
+    copies = []
+    for r in log:
+        if r["kind"] == "kernels":
+            continue
+        a, b = ref.elapsed_time(r["start"]), ref.elapsed_time(r["end"])
+        rec = dict(kind=r["kind"], step=r["step"], rid=r["rid"], bytes=r["nbytes"], ms=b - a,
+                   gb_per_s=r["nbytes"] / max(b - a, 1e-9) / 1e6)
+        if r["kind"] == "h2d_staged":
+            ka, kb = windows[r["step"]]
+            rec["kernel_window_ms"] = kb - ka
+            rec["inside_kernel_window"] = max(0.0, min(b, kb) - max(a, ka)) / max(b - a, 1e-9)
+        copies.append(rec)
+
+    def rate(kinds):
+        got = [c for c in copies if c["kind"] in kinds]
+        return (sum(c["bytes"] for c in got) / sum(c["ms"] for c in got) / 1e6) if got else None
+
+    return dict(copies=copies, d2h_gb_per_s=rate(("d2h",)),
+                h2d_gb_per_s=rate(("h2d_staged", "h2d_direct")),
+                staged_inside_kernel_window=[c["inside_kernel_window"] for c in copies
+                                             if c["kind"] == "h2d_staged"])
+
+
+def reduced_a5(torch):
+    """Swap preemption, async staging, the prefix cache and a fault plan with
+    retries on reduced models in fp32, the engine on the card against the
+    same engine on the CPU (itself held to the JAX engine by
+    tests/test_torch_a5.py), on that file's fixed workloads: the same greedy
+    tokens, and every page (or slot row) a swap-in restored bit-equal to what
+    its swap-out gathered, some under another physical page id."""
+    import numpy as np
+
+    from repro_torch.configs import get_config, reduce_config
+    from repro_torch.core.scheduler import SchedulerConfig
+    from repro_torch.models import build_model
+    from repro_torch.robustness import VERDICT_DELAY, VERDICT_FAIL, FaultPlan, FaultSpec
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.workload import shared_prefix_requests
+
+    swap_knobs = dict(chunk_size=16, max_decode_batch=3, prefetch_buffer_bytes=0,
+                      max_concurrent_prefills=2, kv_capacity_tokens=30, preemption="swap",
+                      kv_block_size=4)
+    engine_swap = dict(chunk_size=16, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
+                       max_concurrent_prefills=2, kv_capacity_tokens=30, preemption="swap")
+    prefix_knobs = dict(chunk_size=16, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
+                        max_concurrent_prefills=2, kv_block_size=4, enable_prefix_cache=True)
+    models = {}
+    # one layer each, as the CPU tests run them: the workloads' smallest
+    # top-2 logit gaps there are 3.2e-3 (Llama's swaps), 3.8e-4 (Mamba2's),
+    # 7.8e-3 and 1.1e-3 (the prefix cases); at two layers the swap workload's
+    # falls to 3.2e-5, too close for card against CPU (each record carries
+    # its own)
+    for arch in ("llama3.1-8b", "mamba2-2.7b"):
+        cfg = reduce_config(get_config(arch))
+        cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
+        models[arch] = (cfg, cpu_model.init(torch.Generator().manual_seed(0)))
+    vocab = models["llama3.1-8b"][0].vocab_size
+    rng = np.random.default_rng(3)
+    swap_reqs = [(rng.integers(0, vocab, n).tolist(), o) for n, o in [(17, 6), (23, 5), (12, 7)]]
+    rng = np.random.default_rng(44)
+    engine_reqs = [(rng.integers(0, vocab, n).tolist(), o) for n, o in [(5, 6), (17, 4), (9, 8)]]
+    rng = np.random.default_rng(17)
+    base = rng.integers(0, vocab, size=26).tolist()
+    mid_block = [(base, 5), (base[:14] + [(t + 1) % vocab for t in base[14:24]], 5),
+                 (base[:22] + [(t + 3) % vocab for t in base[22:26]], 5)]
+    shared = [(r.prompt, r.max_new_tokens) for r in shared_prefix_requests(
+        n=4, shared_len=20, unique_len=8, max_new_tokens=5, jitter=2, seed=11, vocab_size=vocab)]
+    # step 5 swaps a victim out and copies a prefix page into a page it gave up
+    reused = [(r.prompt, r.max_new_tokens) for r in shared_prefix_requests(
+        n=4, shared_len=19, unique_len=8, max_new_tokens=5, jitter=2, seed=0, vocab_size=vocab)]
+    faults = FaultPlan(seed=2, fail_rate=0.4, delay_rate=0.2, scripted={
+        (0, 0): FaultSpec(VERDICT_FAIL), (1, 0): FaultSpec(VERDICT_DELAY, delay_steps=2)})
+    cases = {  # name: (arch, attn_kernel, scheduler settings, requests, one at a time)
+        "swap_paged_async": ("llama3.1-8b", "paged", dict(swap_knobs, async_prefetch=True),
+                             swap_reqs, False),
+        "swap_paged_sync": ("llama3.1-8b", "paged", dict(swap_knobs, async_prefetch=False),
+                            swap_reqs, False),
+        "swap_dense": ("llama3.1-8b", "dense", swap_knobs, swap_reqs, False),
+        "swap_two_call": ("mamba2-2.7b", "auto", engine_swap, engine_reqs, False),
+        "prefix_mid_block": ("llama3.1-8b", "paged", prefix_knobs, mid_block, True),
+        "prefix_pool16_swap": ("llama3.1-8b", "paged",
+                               dict(prefix_knobs, num_kv_blocks=16, preemption="swap"),
+                               shared, False),
+        "prefix_swap_reused_page": ("llama3.1-8b", "paged",
+                                    dict(prefix_knobs, num_kv_blocks=16, preemption="swap"),
+                                    reused, False),
+        "chaos_retries": ("llama3.1-8b", "paged",
+                          dict(swap_knobs, fault_plan=faults, max_transfer_retries=2),
+                          swap_reqs, False),
+    }
+    kernel_of = {"paged": "mixed_paged_attention", "dense": "paged_attention",
+                 "auto": "ssd_chunk_scan"}
+    records, ok = [], True
+    for name, (arch, kernel, knobs, reqs, one_at_a_time) in cases.items():
+        cfg, params = models[arch]
+        got, gaps = {}, []
+        for device in ("cpu", "cuda"):
+            model = build_model(cfg, dtype=torch.float32, device=device)
+            eng = _a5_engine_class(torch, digest=False)(
+                model, _to(params, device), SchedulerConfig(**knobs), max_len=64,
+                attn_kernel=kernel, device=device)
+            if device == "cpu":
+                sample = eng._sample_rows
+
+                def gap_sample(logits, sample=sample):
+                    top = torch.topk(logits, 2, dim=-1).values
+                    gaps.append(float((top[:, 0] - top[:, 1]).min()))
+                    return sample(logits)
+
+                eng._sample_rows = gap_sample
+            reset_counts()
+            for rid, (prompt, n_out) in enumerate(reqs):
+                eng.submit(Request(rid=rid, prompt=list(prompt), max_new_tokens=n_out))
+                if one_at_a_time:
+                    eng.run(max_steps=400)
+            eng.run(max_steps=2000)
+            counts, plain = read_counts()
+            stats = eng.scheduler.stats
+            computing = sum(1 for p in eng.plans if p.total_tokens)
+            got[device] = dict(
+                outputs=[eng.scheduler.requests[r].output for r in range(len(reqs))],
+                steps=eng.steps_run, swap_outs=stats.swap_outs, swap_ins=stats.swap_ins,
+                prefix_hits=stats.prefix_hits,
+                prefix_copies=sum(len(p.prefix_copies) for p in eng.plans),
+                swap_in_intents=sum(t.kind == "swap_in" for p in eng.plans for t in p.issued),
+                transfer_failures=eng.scheduler.prefetch_queue.stats.transfer_failures,
+                launches=counts[kernel_of[kernel]], plain_cuda_calls=plain,
+                computing_steps=computing, layers=cfg.n_layers,
+                segments=sum(len(p.prefill_segments) for p in eng.plans),
+                swap_store_left=len(eng.swap_store), staged_left=len(eng._staged),
+                host_buffers=dict(pinned=eng.host_pool.pinned, reused=eng.host_pool.reused),
+                bytes_moved=dict(eng.swap_bytes_moved),
+                reused_copy_pages=eng.reused_copy_pages(), **eng.round_trips())
+        card, cpu = got["cuda"], got["cpu"]
+        rec = dict(phase="reduced_a5", case=name, arch=cfg.name, attn_kernel=kernel,
+                   dtype="float32", min_top2_gap_cpu=min(gaps),
+                   tokens_identical=card["outputs"] == cpu["outputs"],
+                   same_schedule=all(card[k] == cpu[k] for k in (
+                       "steps", "swap_outs", "swap_ins", "prefix_hits", "prefix_copies",
+                       "transfer_failures", "bytes_moved", "reused_copy_pages")),
+                   **{k: card[k] for k in card if k != "outputs"})
+        # B1/B2 run once a layer and computing step, B5 once a layer and
+        # prefill segment
+        rec["launches_expected"] = card["layers"] * (
+            card["segments"] if kernel == "auto" else card["computing_steps"])
+        rec["ok"] = (rec["tokens_identical"] and rec["same_schedule"] and cpu["launches"] == 0
+                     and card["plain_cuda_calls"] == 0 and card["launches"] > 0
+                     and rec["launches_expected"] == card["launches"]
+                     and card["swap_store_left"] == 0 and card["staged_left"] == 0
+                     and card["restored_bit_equal"] and cpu["restored_bit_equal"]
+                     and all(len(o) == n for o, (_, n) in zip(card["outputs"], reqs)))
+        if knobs.get("preemption") == "swap":
+            rec["ok"] = rec["ok"] and card["swap_outs"] == card["swap_ins"] > 0
+            if kernel == "paged":
+                rec["ok"] = rec["ok"] and card["relocated"]
+        if name == "swap_paged_async":
+            rec["ok"] = rec["ok"] and card["swap_in_intents"] > 0
+        if name.startswith("prefix"):
+            rec["ok"] = rec["ok"] and card["prefix_hits"] > 0
+        if name == "prefix_mid_block":
+            rec["ok"] = rec["ok"] and card["prefix_copies"] == 2
+        if name == "prefix_swap_reused_page":
+            rec["ok"] = rec["ok"] and bool(card["reused_copy_pages"])
+        if name == "chaos_retries":
+            rec["ok"] = rec["ok"] and card["transfer_failures"] > 0
+        emit(rec)
+        records.append(rec)
+        ok = ok and rec["ok"]
+    if not ok:
+        raise AssertionError(f"reduced_a5: {[r for r in records if not r['ok']]}")
+
+
+def swap_extra(torch, keys, compare_to=None):
+    """``serve``'s ``extra`` for the swap runs: the round trips' digests,
+    the swap steps and their ms (with and without the digests' device ms),
+    the copies' rates and overlap, bytes moved
+    against the memory manager's counts; with ``compare_to`` (the other
+    run's plan keys and outputs) whether the plans match step by step, and
+    if they do, the tokens too. A run with staging must have staged."""
+
+    def extra(eng, step_ms):
+        plans = eng.plans
+        timing = copy_timing(torch, eng)
+        digest_ms = eng.digest_ms()
+        mem = eng.scheduler.mem
+        trips = eng.round_trips()
+        swap_steps = [dict(step=i, ms=step_ms[i], digest_ms=digest_ms.get(p.step, 0.0),
+                           ms_less_digests=step_ms[i] - digest_ms.get(p.step, 0.0),
+                           swapped_out=[r for r, _ in p.swapped_out],
+                           swapped_in=[r for r, _ in p.swapped_in],
+                           staged=[t.rid for t in p.issued if t.kind == "swap_in"])
+                      for i, p in enumerate(plans)
+                      if p.swapped_out or p.swapped_in or p.issued]
+        keys.extend(plan_key(p) for p in plans)
+        outputs = [eng.scheduler.requests[r].output for r in range(len(eng.scheduler.requests))]
+        rec = dict(swap_outs=eng.scheduler.stats.swap_outs, swap_ins=eng.scheduler.stats.swap_ins,
+                   digest_ms_total=sum(digest_ms.values()),
+                   swap_out_gib=mem.swap_out_bytes_total / 2**30,
+                   swap_in_gib=mem.swap_in_bytes_total / 2**30,
+                   bytes_moved=dict(eng.swap_bytes_moved),
+                   bytes_moved_equal_ledger=(
+                       eng.swap_bytes_moved["d2h"] == mem.swap_out_bytes_total
+                       and eng.swap_bytes_moved["h2d"] == mem.swap_in_bytes_total),
+                   host_buffers=dict(pinned=eng.host_pool.pinned, reused=eng.host_pool.reused,
+                                     pinned_gib=eng.host_pool.pinned_bytes / 2**30),
+                   host_ms=eng.host_ms, stage_segments=eng.stage_segments,
+                   swap_steps=swap_steps, **trips, **{k: v for k, v in timing.items()
+                                                      if k != "copies"},
+                   copies=timing["copies"])
+        ok = (trips["restored_bit_equal"] and trips["relocated"]
+              and rec["swap_outs"] == rec["swap_ins"] == 4 and rec["bytes_moved_equal_ledger"]
+              and not eng.swap_store and not eng._staged)
+        if compare_to is not None:
+            rec["plans_match_sync"] = keys == compare_to["keys"]
+            rec["tokens_equal_sync"] = outputs == compare_to["outputs"]
+            ok = ok and (rec["tokens_equal_sync"] or not rec["plans_match_sync"])
+        if eng.sched_cfg.async_prefetch:
+            ok = ok and len(rec["staged_inside_kernel_window"]) > 0
+        rec["a5_ok"] = ok
+        return rec
+
+    return extra
+
+
+def prefix_extra(eng, step_ms):
+    plans = eng.plans
+    stats = eng.scheduler.stats
+    copies = sum(len(p.prefix_copies) for p in plans)
+    rec = dict(prefix_hits=stats.prefix_hits, prefix_hit_tokens=stats.prefix_hit_tokens,
+               prefix_copies=copies,
+               copy_steps=[dict(step=i, ms=step_ms[i], copies=len(p.prefix_copies))
+                           for i, p in enumerate(plans) if p.prefix_copies])
+    rec["a5_ok"] = stats.prefix_hits == 6 and copies == 6
+    return rec
+
+
+def a5_serves(torch, smi, model, params, setup):
+    """Llama3.1-8B at full width through the A5 paths: ``serve_swap_sync``
+    (swap preemption without staging), ``serve_swap`` (the same with async
+    staging; its plans and tokens against the first run's; each engine pins
+    its own host buffers, so both runs start from none), ``serve_prefix`` (the
+    prefix cache over a shared 2008-token prefix) and ``serve_prefix_off``
+    (the same prompts without the cache). Returns their records."""
+    from repro_torch.serving.workload import shared_prefix_requests
+
+    cls = _a5_engine_class(torch, digest=True)
+
+    class Timed(cls):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.copy_log = []
+
+    keys_sync, keys_async = [], []
+    runs = [serve(torch, smi, model, params, setup, phase="serve_swap_sync", profile=False,
+                  sched=dict(SWAP_SCHED, async_prefetch=False), engine_cls=Timed,
+                  extra=swap_extra(torch, keys_sync))]
+    runs.append(serve(torch, smi, model, params, setup, phase="serve_swap", profile=False,
+                      sched=dict(SWAP_SCHED, async_prefetch=True), engine_cls=Timed,
+                      extra=swap_extra(torch, keys_async, dict(keys=keys_sync,
+                                                               outputs=runs[0]["outputs"]))))
+    prompts = [r.prompt for r in shared_prefix_requests(vocab_size=model.cfg.vocab_size,
+                                                         **PREFIX_REQUESTS)]
+    runs.append(serve(torch, smi, model, params, setup, phase="serve_prefix", profile=False,
+                      sched=dict(enable_prefix_cache=True), prompts=prompts, engine_cls=cls,
+                      extra=prefix_extra))
+    runs.append(serve(torch, smi, model, params, setup, phase="serve_prefix_off",
+                      profile=False, prompts=prompts))
+    runs[2]["cache_off"] = dict(tok_per_s=runs[3]["tok_per_s"],
+                                prefill_tokens=runs[3]["prefill_tokens"], steps=runs[3]["steps"])
+    return runs
+
+
 def micro(torch, parity):
     """kernels_micro's two comparisons at its full shapes (fp32; H 8, KV 2,
     d 64; 32 rows of a 8192-token cache at lengths 64..2048; page 128):
@@ -2458,11 +2934,13 @@ def main() -> int:
     reduced_serial(torch)
     reduced_two_call(torch)
     reduced_archs(torch)
+    reduced_a5(torch)
     model, params, setup = full_model(torch)
     served = serve(torch, smi, model, params, setup)
     dense_engine_check(torch, model, params)
     served_dense = serve(torch, smi, model, params, setup, attn_kernel="dense")
     serial_rec = serial(torch, smi, model, params, served)
+    a5_runs = a5_serves(torch, smi, model, params, setup)
     del model, params
     torch.cuda.empty_cache()
     micro(torch, parity)
@@ -2509,7 +2987,7 @@ def main() -> int:
                                               "b4_gemma2_prompt6000_bf16",
                                               "b4_g6_prompt4096_bf16", "b4_g16_prompt4096_bf16"]),
              "ssd_chunk_scan": (served_mamba, ["b5_s512_bf16", "b5_s100_bf16"])}
-    runs = [served, served_dense, serial_rec, served_mamba] + arch_runs
+    runs = [served, served_dense, serial_rec, served_mamba] + a5_runs + arch_runs
     lines = []
     for kname, (source, replaces) in KERNELS.items():
         path, cases = paths[kname]

@@ -15,8 +15,11 @@ two-call path over a fixed ``(max_batch + 1)``-row state and sizes no pool
 either; the launcher prints the state's bytes. ``--layers N`` keeps an
 arch's published widths and runs its first N layers, for a model whose
 weights outgrow the card (llama3.1-70b: 141 GB in bf16). The flags mirror
-the JAX launcher's; swap preemption and the prefix cache are not ported
-yet and raise.
+the JAX launcher's: ``--preemption swap`` parks preempted KV in pinned host
+memory, ``--prefix-cache`` shares cached prompt pages copy-on-write (the
+paged path only; ``--shared-prefix N`` makes prompts that share N tokens),
+and ``--no-async-prefetch`` turns off the staging of predicted restores on
+the engine's copy stream (tokens are the same either way).
 """
 from __future__ import annotations
 
@@ -111,14 +114,17 @@ def main():
                     help="packed attention path: ragged block-table (paged) vs dense "
                          "slot cache")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="radix prefix cache (not ported)")
+                    help="radix prefix cache: shared prompt prefixes fork cached pages "
+                         "copy-on-write instead of re-prefilling")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="generate prompts sharing a system prefix of this many tokens "
                          "(0 = independent random prompts)")
     ap.add_argument("--admission-watermark", type=int, default=0,
                     help="free-page low-watermark gating NEW admissions (blocks)")
     ap.add_argument("--no-async-prefetch", action="store_true",
-                    help="disable one-step-ahead KV transfer planning")
+                    help="disable one-step-ahead KV transfer staging: swap restores copy "
+                         "from the host on the compute stream instead of riding under the "
+                         "previous step (outputs are token-identical either way)")
     ap.add_argument("--trace-out", default=None, metavar="PATH",
                     help="write a Chrome/Perfetto trace.json of the run")
     ap.add_argument("--metrics-json", default=None, metavar="PATH",
@@ -237,6 +243,14 @@ def main():
     else:
         memory = (f"pool={alloc.peak_used_blocks}/{alloc.num_blocks}pages"
                   f"({pool_basis}:{device.type})")
+    swap_rep = (f"swap_d2h={eng.swap_bytes_moved['d2h']}B "
+                f"swap_h2d={eng.swap_bytes_moved['h2d']}B "
+                f"host_buffers={eng.host_pool.pinned}+{eng.host_pool.reused}reused "
+                if args.preemption == "swap" else "")
+    prefix_rep = (f"prefix_hit_rate={m['prefix_hit_rate']:.2f} "
+                  f"prefill_skipped={int(m['prefix_tokens_skipped'])}tok "
+                  f"fill_saved={m['prefix_fill_bytes_saved']:.0f}B "
+                  if args.prefix_cache else "")
     print(f"[launch.serve] mode={'two-call' if eng.two_call else 'packed'} "
           f"attn={eng.attn_kernel} "
           f"policy={args.policy} steps={eng.steps_run} "
@@ -245,6 +259,8 @@ def main():
           f"preemptions={int(m['preemptions'])} "
           f"swaps={int(m['swap_outs'])} "
           f"{memory} "
+          f"{swap_rep}"
+          f"{prefix_rep}"
           f"oob_stalls={int(m['out_of_block_stalls'])} "
           f"wm_stalls={int(m['watermark_stalls'])} "
           f"attn_savings={m['attn_padding_savings']:.2f} "

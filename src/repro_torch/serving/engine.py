@@ -1,9 +1,8 @@
 """Continuous-batching serving engine driven by the packing-prefetch scheduler.
 
-The PyTorch counterpart of the JAX package's ``serving/engine.py`` for its
-packed path: decode tokens and prefill chunks share every linear and FFN
-matmul in one ``packed_step``, with recompute preemption. Two KV layouts, as
-in JAX (``attn_kernel``):
+The PyTorch counterpart of the JAX package's ``serving/engine.py``: decode
+tokens and prefill chunks share every linear and FFN matmul in one
+``packed_step``. Two KV layouts, as in JAX (``attn_kernel``):
 
   * ``"paged"``: a physically paged pool of ``num_kv_blocks + 1`` pages per
     layer (the extra page is the scratch page dead table entries and padding
@@ -31,14 +30,40 @@ enc-dec) run JAX's two-call path instead (``_run_two_call``): one
 ``model.init_cache(n_slots + 1, max_len)``. They have no page pool and no
 block mirror.
 
+Swap preemption parks a victim's KV in host memory (``swap_store``): in paged
+mode only the record's spilled (private) pages, which a swap-in scatters into
+the fresh pages ``attach()`` mints at the same table positions; in dense mode
+the slot's cache rows; on the two-call path the slot's ``{conv, ssm}``
+states. A swap moves exactly those pages or rows, with no padding, packed
+into one flat buffer: one device gather, then one copy to pinned host memory
+on the compute stream, ordered by an event. The pinned buffers are reused
+(``HostPool``). The prefix cache's mid-block resumes copy a cached page into
+a fresh private one (``_apply_prefix_copies``), every source gathered before
+any destination is written. A step's swap-outs are gathered before its
+prefix copies, since a copy's destination may be a page a victim just gave
+up; JAX runs the copies first (ROADMAP.md §C).
+
+Asynchronous prefetch (``SchedulerConfig.async_prefetch``): the scheduler
+issues next-step transfer intents (swap-in restores, prefix re-adoptions)
+through the in-flight/landed ledger while this step runs. The engine
+realizes a restore by *staging*: its host copy goes to the device on the
+engine's own copy stream, enqueued after this step's kernels and before the
+host waits on the step's tokens, so the copy rides under the compute. The
+consuming step's ``_apply_swaps`` makes the compute stream wait on the staged
+copy's event and scatters from it device to device; an unpredicted restore
+copies from the host on the compute stream. ``_verify_landed`` refuses a
+step that would read pages whose transfer has not landed. Staged and direct
+restores scatter the same bytes, so greedy outputs are token-identical with
+async prefetch on or off. On the CPU the same code runs without streams,
+events or pinning, chosen by the engine's ``device``.
+
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: swap preemption and the prefix cache (with their staged async
-prefetch), and the archs ``Model`` does not build (Mamba1, enc-dec).
+item: the archs ``Model`` does not build (Mamba1, enc-dec).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,11 +71,24 @@ import torch
 from repro_torch.core.packed_step import DenseView, PagedView, packed_step, supports_packed
 from repro_torch.core.scheduler import Scheduler, SchedulerConfig, StepPlan
 from repro_torch.kernels.paged_attention import q_tiles, row_tiles
+from repro_torch.memory.prefetch_queue import ADOPT, SWAP_IN
 from repro_torch.models.model import Model
-from repro_torch.obs.trace import LANE_COMPUTE, LANE_PREFETCH_STAGE, LANE_SCHED, LANE_STEP, NOOP
+from repro_torch.obs.attribution import PREFETCH_STAGE as ATTR_PREFETCH_STAGE
+from repro_torch.obs.attribution import SWAP_IN as ATTR_SWAP_IN
+from repro_torch.obs.attribution import SWAP_OUT as ATTR_SWAP_OUT
+from repro_torch.obs.trace import (
+    LANE_COMPUTE,
+    LANE_HOST_LINK,
+    LANE_PREFETCH_STAGE,
+    LANE_SCHED,
+    LANE_STEP,
+    NOOP,
+)
 from repro_torch.serving.request import Request
 
 ATTN_KERNELS = ("auto", "paged", "dense")
+_ALIGN = 16  # byte alignment of each leaf inside a swap buffer
+_HOST_ROUND = 2 << 20  # pinned buffers are sized in 2 MiB steps, so they fit again
 
 
 def _pow2_at_least(n: int, start: int = 8) -> int:
@@ -58,6 +96,40 @@ def _pow2_at_least(n: int, start: int = 8) -> int:
     while m < n:
         m *= 2
     return m
+
+
+class HostPool:
+    """Host buffers for swapped KV, kept and reused: pinning memory costs far
+    more than a copy into it (on an H100's host, pinning ran at about 2.8
+    GB/s against 54 GB/s for the copy), so a buffer goes back to the free
+    list when its restore is done and the next swap-out takes the smallest
+    free one that fits. Each engine has its own pool. A buffer comes back
+    with the events of the copies that last read it; the stream that writes
+    it next waits on them (on the CPU there are none)."""
+
+    def __init__(self, pin: bool):
+        self.pin = pin
+        self._free: List[Tuple[torch.Tensor, list]] = []
+        self.pinned = 0  # buffers allocated
+        self.pinned_bytes = 0
+        self.reused = 0
+
+    def take(self, nbytes: int) -> torch.Tensor:
+        fits = [i for i, (buf, _) in enumerate(self._free) if buf.numel() >= nbytes]
+        if fits:
+            i = min(fits, key=lambda j: self._free[j][0].numel())
+            buf, events = self._free.pop(i)
+            for ev in events:
+                torch.cuda.current_stream().wait_event(ev)
+            self.reused += 1
+            return buf
+        size = -(-nbytes // _HOST_ROUND) * _HOST_ROUND
+        self.pinned += 1
+        self.pinned_bytes += size
+        return torch.empty(size, dtype=torch.uint8, pin_memory=self.pin)
+
+    def give(self, buf: torch.Tensor, events: list) -> None:
+        self._free.append((buf, list(events)))
 
 
 class Engine:
@@ -78,17 +150,10 @@ class Engine:
         self.device = torch.device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked for {self.device}")
+        self.cuda = self.device.type == "cuda"
         # SSM archs cannot share a step's matmuls across rows of different
         # requests' recurrent states: they run the two-call path
         self.two_call = not supports_packed(model.cfg)
-        if sched_cfg.preemption == "swap":
-            raise NotImplementedError(
-                "swap preemption is not ported yet (ROADMAP.md A5: the engine's swap, "
-                "prefix-cache and async-prefetch staging)")
-        if sched_cfg.enable_prefix_cache:
-            raise NotImplementedError(
-                "the prefix cache is not ported yet (ROADMAP.md A5: the engine's swap, "
-                "prefix-cache and async-prefetch staging)")
         self.page_size = sched_cfg.kv_block_size
         if attn_kernel == "auto":
             attn_kernel = ("paged" if not self.two_call and max_len % self.page_size == 0
@@ -97,6 +162,12 @@ class Engine:
             raise ValueError(
                 "attn_kernel='paged' needs packed mode and max_len divisible by "
                 f"kv_block_size (max_len={max_len}, block={self.page_size})")
+        if sched_cfg.enable_prefix_cache and attn_kernel != "paged":
+            # dense slot caches and two-call states have no shared pages a
+            # forked block table could point at
+            raise ValueError(
+                "enable_prefix_cache requires the physically paged engine path "
+                "(attn_kernel='paged'); dense/two-call KV has no copy-on-write pages to share")
         self.attn_kernel = attn_kernel
         self.model = model
         self.params = params
@@ -106,6 +177,23 @@ class Engine:
         self.n_slots = sched_cfg.max_decode_batch
         self.steps_run = 0
         self.prefetch_log: List[float] = []
+        # swap preemption's host tier: rid -> {"idx": spilled table positions
+        # (paged; None otherwise), "kv": the flat host buffer (None when
+        # every page stayed resident), "buf": the pooled buffer it views,
+        # "events": the copies that touched it}
+        self.swap_store: Dict[int, dict] = {}
+        # async prefetch: rid -> {"kv": the staged device copy of a
+        # predicted restore, "event": its copy's end}, made by
+        # _issue_prefetch on the copy stream, consumed by _apply_swaps
+        self._staged: Dict[int, dict] = {}
+        self.host_pool = HostPool(pin=self.cuda)
+        self._copy_stream = None  # made at the first staged copy
+        # bytes each direction actually moved (the ledger's counts are the
+        # scheduler's; these are the copies')
+        self.swap_bytes_moved = {"d2h": 0, "h2d": 0}
+        # None, or a list the engine appends a record to for every swap
+        # copy and every step's kernel window, with CUDA events (card only)
+        self.copy_log: Optional[list] = None
 
         if attn_kernel == "paged":
             self._group = self.cfg.n_heads // self.cfg.n_kv_heads
@@ -149,19 +237,29 @@ class Engine:
                 break
 
     def shutdown(self, reason: str = "shutdown") -> int:
-        """Cancel every non-terminal request and outstanding ledger intent,
-        so a flushed trace is fully terminal. Returns the number cancelled."""
+        """Cancel every non-terminal request, purge their host-tier and
+        staged state, and cancel outstanding ledger intents, so a flushed
+        trace is fully terminal. Returns the number cancelled."""
         n = self.scheduler.cancel_all(reason, now=float(self.steps_run))
-        self.scheduler.drain_released()
+        self._purge_released()
         self.scheduler.prefetch_queue.cancel_outstanding(reason)
         return n
 
+    def _purge_released(self) -> None:
+        """Drop the host copies and staged device copies of requests the
+        scheduler released (cancellations, swap->recompute fallbacks). A
+        staged copy still in flight keeps its memory: it was allocated on the
+        copy stream, which reuses it only after the copy."""
+        for rid, _reason in self.scheduler.drain_released():
+            self._release_host(self.swap_store.pop(rid, None))
+            self._staged.pop(rid, None)
+
     def register_metrics(self, reg) -> None:
-        """Engine-side gauges for the typed metrics registry: step count and
-        pool capacity / peak pressure."""
+        """Engine-side gauges for the typed metrics registry: step count,
+        host-tier occupancy and (paged) pool capacity / peak pressure."""
         reg.counter("engine_steps", "steps", "engine steps executed").inc(self.steps_run)
         reg.gauge("engine_swap_store_entries", "requests",
-                  "host-tier KV copies currently held").set(0.0)
+                  "host-tier KV copies currently held").set(float(len(self.swap_store)))
         if self.attn_kernel == "paged":
             reg.gauge("kv_pool_pages", "pages",
                       "physical pages in the paged KV pool").set(float(self.num_pool_pages))
@@ -188,36 +286,48 @@ class Engine:
 
     # ----------------------------------------------------------------- steps
     def step(self, now: float = 0.0) -> Optional[StepPlan]:
+        """One step, in the JAX engine's order (plan, page moves, the landed
+        check, compute, staging of the next step's restores,
+        ``complete_step``, the step's attribution instant) but for the page
+        moves: JAX copies prefix pages before the swaps, the port gathers
+        the swap-outs first (``_apply_swaps``). The staging is enqueued after
+        the compute's kernels and before the host waits on the step's
+        tokens."""
         tr = self.trace
         t0 = tr.now() if tr.enabled else 0.0
         plan = self.scheduler.next_step(now)
-        # no swap store or staged copies to purge (swap and the prefix cache
-        # are refused at construction, so no plan carries their traffic or
-        # transfer intents); the log is drained so it does not grow
-        self.scheduler.drain_released()
+        self._purge_released()  # even a None plan may have cancelled requests
         if plan is None:
             return None
         if plan.prefetch is not None:
             self.prefetch_log.append(plan.prefetch.coverage)
         t1 = tr.now() if tr.enabled else 0.0
-        if self.two_call:
-            self._run_two_call(plan)
-        else:
-            self._run_packed(plan)
+        self._refuse_round_trips(plan)
+        self._apply_swaps(plan)  # swap-outs, prefix copies, swap-ins
+        self._verify_landed(plan)
         t2 = tr.now() if tr.enabled else 0.0
+        window = self._mark(plan.step, "kernels")
+        pending = self._run_two_call(plan) if self.two_call else self._run_packed(plan)
+        self._mark_end(window)
+        t3 = tr.now() if tr.enabled else 0.0
+        self._issue_prefetch(plan)
+        self._take_tokens(pending)
+        t4 = tr.now() if tr.enabled else 0.0
         self.scheduler.complete_step(plan, now)
         self.scheduler.ledger.record_step(tr, plan.step)
         if tr.enabled:
-            t3 = tr.now()
+            t5 = tr.now()
             step = self.steps_run
-            tr.span(LANE_STEP, f"step {step}", t0, t3 - t0, step=step,
+            tr.span(LANE_STEP, f"step {step}", t0, t5 - t0, step=step,
                     tokens=plan.total_tokens, decodes=len(plan.decode_rids),
                     prefill_tokens=plan.total_prefill_tokens)
             tr.span(LANE_SCHED, "next_step", t0, t1 - t0, step=step)
-            tr.span(LANE_COMPUTE, "compute", t1, t2 - t1, step=step,
-                    tokens=plan.total_tokens)
-            tr.span(LANE_PREFETCH_STAGE, "stage+complete", t2, t3 - t2,
-                    step=step, issued=len(plan.issued))
+            if plan.swapped_out or plan.swapped_in:
+                tr.span(LANE_HOST_LINK, "apply_swaps", t1, t2 - t1, step=step,
+                        swap_out=len(plan.swapped_out), swap_in=len(plan.swapped_in))
+            tr.span(LANE_COMPUTE, "compute", t2, t4 - t2, step=step, tokens=plan.total_tokens)
+            tr.span(LANE_PREFETCH_STAGE, "stage+complete", t3, t5 - t3, step=step,
+                    issued=len(plan.issued))
         self.steps_run += 1
         return plan
 
@@ -227,10 +337,270 @@ class Engine:
         tie, as ``np.argmax``); override for other decoders."""
         return torch.argmax(logits_rows, dim=-1).cpu().numpy()
 
+    def _take_tokens(self, pending) -> None:
+        """Sample each (requests, logits rows) pair the compute left and
+        append the tokens: the host's only wait on the step's compute."""
+        for reqs, logits in pending:
+            for req, tok in zip(reqs, self._sample_rows(logits)):
+                self._append(req, int(tok))
+
     def _append(self, req: Request, tok: int) -> None:
         req.output.append(tok)
         if self.eos_id is not None and tok == self.eos_id:
             req.finished = True  # complete_step checks the flag explicitly
+
+    # ------------------------------------------------------- copy timing
+    def _mark(self, step: int, kind: str, **info) -> Optional[dict]:
+        """With ``copy_log`` on (card only), a record whose start event is
+        recorded now on the current stream; ``_mark_end`` records its end."""
+        if self.copy_log is None or not self.cuda:
+            return None
+        rec = dict(step=step, kind=kind, start=torch.cuda.Event(enable_timing=True),
+                   end=torch.cuda.Event(enable_timing=True), **info)
+        rec["start"].record()
+        self.copy_log.append(rec)
+        return rec
+
+    @staticmethod
+    def _mark_end(rec: Optional[dict]) -> None:
+        if rec is not None:
+            rec["end"].record()
+
+    # ----------------------------------------------------------------- swaps
+    def block_spans(self, rid: int) -> List[Tuple[int, int, int]]:
+        """A request's block table on its logical token axis: [(block_id,
+        start_token, n_tokens)], which pool page holds which span."""
+        mem = self.scheduler.mem
+        table = mem.allocator.tables.get(rid)
+        if table is None:
+            return []
+        bs = mem.block_size
+        return [(bid, i * bs, min(bs, table.num_tokens - i * bs))
+                for i, bid in enumerate(table.blocks)]
+
+    def _refuse_round_trips(self, plan: StepPlan) -> None:
+        """A plan that swaps a request out and back in within one step has
+        no host copy to restore from when the swaps run (the memory
+        manager's record is gone): refuse it before any device write."""
+        both = sorted({r for r, _ in plan.swapped_out} & {r for r, _ in plan.swapped_in})
+        if both:
+            raise RuntimeError(
+                f"step {plan.step}: request {both[0]} is swapped out and back in within one "
+                f"plan (swapped_out={plan.swapped_out}, swapped_in={plan.swapped_in}); its "
+                "pages were never gathered. A reference-side scheduler fault: ROADMAP.md §C")
+
+    def _apply_prefix_copies(self, plan: StepPlan) -> None:
+        """The plan's mid-block prefix resumes: each ``(rid, src_block,
+        dst_block, n_tokens)`` copies a cached page whose first ``n_tokens``
+        match the admitted prompt into the fresh private page the admission
+        minted. Whole pages move (positions past ``n_tokens`` stay masked
+        until the request's prefill writes them); the shared source is never
+        written. Each layer's sources are gathered before any destination of
+        that layer is written; ``_apply_swaps`` runs it after the swap-outs,
+        whose pages a destination may reuse."""
+        if self.attn_kernel != "paged" or not plan.prefix_copies:
+            return
+        ids = torch.tensor([[s for _, s, _, _ in plan.prefix_copies],
+                            [d for _, _, d, _ in plan.prefix_copies]],
+                           dtype=torch.long).to(self.device)
+        src, dst = ids[0], ids[1]
+        for layer in self.cache:
+            for v in layer.values():
+                v.index_copy_(0, dst, v.index_select(0, src))
+
+    def _units(self, slot: int, table_ids: Optional[List[int]]):
+        """What one swap moves, leaf by leaf: (leaf tensor, index
+        of its units, number of units, unit shape). Paged: the pages
+        ``table_ids`` of every layer's K and V pool. Dense and two-call: the
+        slot's row of every cache leaf (K/V, or conv/ssm states)."""
+        out = []
+        if table_ids is not None:
+            index = torch.tensor(table_ids, dtype=torch.long).to(self.device)
+            n = len(table_ids)
+        else:
+            index, n = slot, 1
+        for layer in self.cache:
+            for v in layer.values():
+                out.append((v, index, n, tuple(v.shape[1:])))
+        return out
+
+    @staticmethod
+    def _layout(units) -> Tuple[List[Tuple[int, int]], int]:
+        """Byte offsets and sizes of each leaf inside one flat swap buffer."""
+        spans, off = [], 0
+        for v, _, n, shape in units:
+            size = n * int(np.prod(shape)) * v.element_size()
+            spans.append((off, size))
+            off += -(-size // _ALIGN) * _ALIGN
+        return spans, off
+
+    @staticmethod
+    def _views(flat: torch.Tensor, units, spans):
+        return [flat[o:o + s].view(v.dtype).view((n,) + shape)
+                for (v, _, n, shape), (o, s) in zip(units, spans)]
+
+    def _swap_out(self, plan: StepPlan, rid: int, slot: int) -> None:
+        """Gather ``rid``'s spilled pages (paged) or slot rows into one flat
+        device buffer, then copy it to a pooled host buffer: on the card a
+        pinned one, the copy non-blocking on the compute stream, its end an
+        event that a later copy from the host waits on."""
+        idx = None
+        table_ids = None
+        if self.attn_kernel == "paged":
+            rec = self.scheduler.mem.swapped[rid].record
+            idx = rec.spilled_indices
+            if not idx:  # every page shared: nothing crosses the link
+                self.swap_store[rid] = {"idx": idx, "kv": None, "buf": None, "events": []}
+                return
+            table_ids = [rec.table.blocks[i] for i in idx]
+        units = self._units(slot, table_ids)
+        spans, total = self._layout(units)
+        stage = torch.empty(total, dtype=torch.uint8, device=self.device)
+        for (v, index, _, _), view in zip(units, self._views(stage, units, spans)):
+            if table_ids is not None:
+                torch.index_select(v, 0, index, out=view)
+            else:
+                view.copy_(v[index:index + 1])
+        buf = self.host_pool.take(total)
+        host = buf[:total]
+        timing = self._mark(plan.step, "d2h", rid=rid, nbytes=total)
+        host.copy_(stage, non_blocking=self.cuda)
+        self._mark_end(timing)
+        events = []
+        if self.cuda:
+            events.append(torch.cuda.Event())
+            events[0].record()
+        self.swap_bytes_moved["d2h"] += total
+        self.swap_store[rid] = {"idx": idx, "kv": host, "buf": buf, "events": events}
+
+    def _swap_in(self, plan: StepPlan, rid: int, slot: int) -> None:
+        """Scatter ``rid``'s host copy into the fresh pages ``attach()``
+        minted at the spilled table positions (paged), or into its new slot's
+        rows. From the staged device copy when async prefetch landed one
+        (the compute stream waits on its event), else from the host on the
+        compute stream."""
+        entry = self.swap_store.pop(rid)
+        staged = self._staged.pop(rid, None)
+        if entry["kv"] is None:
+            return  # every page stayed resident; the table reuses them
+        table_ids = None
+        if self.attn_kernel == "paged":
+            blocks = self.scheduler.mem.allocator.tables[rid].blocks
+            table_ids = [blocks[i] for i in entry["idx"]]
+        units = self._units(slot, table_ids)
+        spans, total = self._layout(units)
+        host = entry["kv"]
+        if staged is not None:
+            dev = staged["kv"]
+            if self.cuda:
+                torch.cuda.current_stream().wait_event(staged["event"])
+                dev.record_stream(torch.cuda.current_stream())
+        else:
+            dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+            timing = self._mark(plan.step, "h2d_direct", rid=rid, nbytes=total)
+            dev.copy_(host, non_blocking=self.cuda)
+            self._mark_end(timing)
+            self.swap_bytes_moved["h2d"] += total
+            if self.cuda:
+                entry["events"].append(torch.cuda.Event())
+                entry["events"][-1].record()
+        for (v, index, _, _), view in zip(units, self._views(dev, units, spans)):
+            if table_ids is not None:
+                v.index_copy_(0, index, view)
+            else:
+                v[index:index + 1].copy_(view)
+        self._release_host(entry)
+
+    def _release_host(self, entry: Optional[dict]) -> None:
+        if entry is not None and entry["buf"] is not None:
+            self.host_pool.give(entry["buf"], entry["events"])
+
+    def _apply_swaps(self, plan: StepPlan) -> None:
+        """The plan's page moves, before the compute: swap-outs, then the
+        prefix copies, then swap-ins. The swap-outs are gathered before any
+        pool page is written: planning frees a victim's pages before
+        admission mints a prefix copy's destination, so that destination can
+        be a page the victim held (JAX copies first, and its swap-out then
+        saves the copied page: ROADMAP.md §C). Prefix copies come before the
+        swap-ins, whose pages are fresh too. The host-link bytes are debited
+        first, from the memory manager's own records, as JAX does. ``step``
+        has refused a plan that swaps one request both ways."""
+        mem = self.scheduler.mem
+        led = self.scheduler.ledger
+        for rid, _slot in plan.swapped_out:
+            led.debit(plan.step, ATTR_SWAP_OUT, mem.swap_host_bytes(rid))
+        for rid, _slot in plan.swapped_in:
+            led.debit(plan.step, ATTR_SWAP_IN, mem.restored_host_bytes(rid))
+        for rid, slot in plan.swapped_out:
+            self._swap_out(plan, rid, slot)
+        self._apply_prefix_copies(plan)
+        for rid, slot in plan.swapped_in:
+            self._swap_in(plan, rid, slot)
+
+    # ------------------------------------------------------------- prefetch
+    def _issue_prefetch(self, plan: StepPlan) -> None:
+        """Realize the ledger transfers this plan issued (or retried) for
+        the next step. SWAP_IN: the restore's host copy is put on the device
+        on the engine's copy stream, after the swap-out's copy (its event)
+        and into memory of that stream's own pool, so a staged copy that a
+        failed attempt drops cannot be reused while it is in flight. ADOPT:
+        the matched pages are already resident; the intent lands at once.
+
+        Under fault injection ``attempt_land`` arbitrates: an attempt that
+        does not land drops its staged copy, and the retry clock re-surfaces
+        the transfer in a later plan's ``retried`` list, where this loop
+        stages it again from the intact host copy."""
+        q = self.scheduler.prefetch_queue
+        for t in list(plan.issued) + list(plan.retried):
+            if t.kind == SWAP_IN:
+                entry = self.swap_store.get(t.rid)
+                if entry is None:
+                    continue  # the intent outlived the host copy
+                if not q.attempt_land(t, plan.step):
+                    self._staged.pop(t.rid, None)
+                    continue
+                if t.rid in self._staged:
+                    continue  # a re-land over an intact staged copy moves nothing
+                if entry["kv"] is None:
+                    continue  # every page shared: nothing to move
+                self._staged[t.rid] = self._stage(plan, t.rid, entry)
+                self.scheduler.ledger.debit(plan.step, ATTR_PREFETCH_STAGE, t.nbytes)
+            elif t.kind == ADOPT:
+                q.attempt_land(t, plan.step)
+
+    def _stage(self, plan: StepPlan, rid: int, entry: dict) -> dict:
+        host = entry["kv"]
+        self.swap_bytes_moved["h2d"] += host.numel()
+        if not self.cuda:
+            return {"kv": host.clone(), "event": None}
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        s = self._copy_stream
+        for ev in entry["events"][:1]:  # the swap-out's copy to the host
+            s.wait_event(ev)
+        with torch.cuda.stream(s):
+            dev = torch.empty(host.numel(), dtype=torch.uint8, device=self.device)
+            timing = self._mark(plan.step, "h2d_staged", rid=rid, nbytes=host.numel())
+            dev.copy_(host, non_blocking=True)
+            self._mark_end(timing)
+            done = torch.cuda.Event()
+            done.record(s)
+        entry["events"].append(done)
+        return {"kv": dev, "event": done}
+
+    def _verify_landed(self, plan: StepPlan) -> None:
+        """No request this step touches may have an issued or in-flight (not
+        landed) transfer: a broken overlap schedule becomes a loud error
+        instead of stale KV."""
+        q = self.scheduler.prefetch_queue
+        rids = set(plan.decode_rids)
+        rids.update(s.rid for s in plan.prefill_segments)
+        for rid in sorted(rids):
+            for kind in (SWAP_IN, ADOPT):
+                if not q.readable(rid, kind):
+                    raise RuntimeError(
+                        f"async prefetch invariant violated: request {rid} is scheduled "
+                        f"this step but its {kind} transfer has not landed")
 
     # ---------------------------------------------------------------- packed
     def _sync_block_mirror(self, plan: StepPlan) -> int:
@@ -263,11 +633,13 @@ class Engine:
         need = -(-max(max_tokens, 1) // self.page_size)
         return min(_pow2_at_least(need), self.pages_per_slot)
 
-    def _run_packed(self, plan: StepPlan) -> None:
+    def _run_packed(self, plan: StepPlan):
+        """Launch the step's packed compute; returns the (requests, logits
+        rows) to sample."""
         sch = self.scheduler
         N = plan.total_tokens
         if N == 0:
-            return  # a zero-token (robustness pump) step computes nothing
+            return []  # a zero-token (robustness pump) step computes nothing
         tokens = np.zeros((N,), np.int32)
         slots = np.zeros((N,), np.int32)
         positions = np.zeros((N,), np.int32)
@@ -291,26 +663,25 @@ class Engine:
 
         rows = list(range(nd)) + list(last_rows.values())
         rids = list(plan.decode_rids) + list(last_rows.keys())
+        logits = self._packed_logits(plan, tokens, slots, positions, row, rows)
+        # sampled later: one device->host transfer of just the token ids
+        return [([sch.requests[rid] for rid in rids], logits)] if rows else []
+
+    def _packed_logits(self, plan, tokens, slots, positions, n_rows: int, rows):
         if self.attn_kernel == "paged":
-            logits = self._packed_paged(plan, tokens, slots, positions, row, rows)
-        else:
-            # dense: ONE host->device copy of the rows' tokens, slots and
-            # positions, the rows to sample and B2's row tiles (a chunk's
-            # rows share its slot's keys); DenseView derives the rest
-            cfg = self.model.cfg
-            tiles = row_tiles(slots[:, None], positions + 1, cfg.n_heads // cfg.n_kv_heads)
-            parts = [tokens, slots, positions, np.asarray(rows, np.int32), tiles.ravel()]
-            meta = torch.from_numpy(np.concatenate(parts)).to(self.device)
-            d_tokens, d_slots, d_pos, d_rows, d_tiles = torch.split(meta,
-                                                                    [p.size for p in parts])
-            logits, self.cache = packed_step(
-                self.model, self.params, self.cache, d_tokens, d_slots, d_pos,
-                DenseView(d_slots, d_pos, tiles=d_tiles.view(-1, 2)))
-            logits = logits[d_rows.long()]
-        # one device->host transfer of just the sampled token ids
-        if rows:
-            for rid, tok in zip(rids, self._sample_rows(logits)):
-                self._append(sch.requests[rid], int(tok))
+            return self._packed_paged(plan, tokens, slots, positions, n_rows, rows)
+        # dense: ONE host->device copy of the rows' tokens, slots and
+        # positions, the rows to sample and B2's row tiles (a chunk's rows
+        # share its slot's keys); DenseView derives the rest
+        cfg = self.model.cfg
+        tiles = row_tiles(slots[:, None], positions + 1, cfg.n_heads // cfg.n_kv_heads)
+        parts = [tokens, slots, positions, np.asarray(rows, np.int32), tiles.ravel()]
+        meta = torch.from_numpy(np.concatenate(parts)).to(self.device)
+        d_tokens, d_slots, d_pos, d_rows, d_tiles = torch.split(meta, [p.size for p in parts])
+        logits, self.cache = packed_step(
+            self.model, self.params, self.cache, d_tokens, d_slots, d_pos,
+            DenseView(d_slots, d_pos, tiles=d_tiles.view(-1, 2)))
+        return logits[d_rows.long()]
 
     def _packed_paged(self, plan: StepPlan, tokens, slots, positions, n_rows: int,
                       rows) -> torch.Tensor:
@@ -352,15 +723,17 @@ class Engine:
         return logits[d_rows.long()]
 
     # -------------------------------------------------------------- two-call
-    def _run_two_call(self, plan: StepPlan) -> None:
+    def _run_two_call(self, plan: StepPlan):
         """JAX's two-call step: one decode call over the decode slots, then
         one prefill call per segment. JAX decodes every slot row and keeps
         the old state of rows that are not decoding (``_mask_tree``); rows
         are independent, so the port decodes only the decoding slots'
         states, gathered, and writes them back. A prefill runs on views of
-        its slot's state, which it updates in place."""
+        its slot's state, which it updates in place. Returns the (requests,
+        logits rows) to sample."""
         sch = self.scheduler
         dev = self.device
+        pending = []
         if plan.decode_slots:
             reqs = [sch.requests[rid] for rid in plan.decode_rids]
             meta = torch.from_numpy(np.asarray(
@@ -373,8 +746,7 @@ class Engine:
             for layer, part in zip(self.cache, sub):
                 for k, v in layer.items():
                     v.index_copy_(0, slots, part[k])
-            for req, tok in zip(reqs, self._sample_rows(logits)):
-                self._append(req, int(tok))
+            pending.append((reqs, logits))
 
         for seg in plan.prefill_segments:
             req = sch.requests[seg.rid]
@@ -391,4 +763,5 @@ class Engine:
                                            {"tokens": torch.from_numpy(chunk).to(dev)}, sub,
                                            seg.start)
             if seg.finishes:
-                self._append(req, int(self._sample_rows(logits[:1])[0]))
+                pending.append(([req], logits[:1]))
+        return pending
