@@ -41,7 +41,8 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   against its Python copy. The new GQA groups (group_parity):
                   B1-B4 at KV 2, d 128 with G 6 (qwen2-1.5b) and G 16
                   (chatglm3-6b; B3 at G 6 only), bf16 and fp32, at their main
-                  paths' shapes. B5's scratch (b5_scratch_checks): one call
+                  paths' shapes, and B1 at KV 4, G 8 (qwen3-moe-30b-a3b,
+                  g8_kv4). B5's scratch (b5_scratch_checks): one call
                   captured in a CUDA graph and replayed twice on new inputs,
                   bit-equal to eager, its epoch word moved on by one a
                   replay; a call on a second stream on a scratch of its own;
@@ -61,11 +62,13 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   reduced_two_call reduced mamba2-2.7b in fp32: the two-call engine on the card
                   (B5) and on the CPU and the serial path on the card give the
                   same greedy tokens
-  reduced_archs   gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b and llama3.1-70b
-                  at reduced widths with their published GQA groups (G 2, 6,
-                  16, 8, 8), fp32, biases and norm scales drawn from a seed:
-                  the paged engine on the card gives the CPU's greedy tokens,
-                  and for gemma2 so do the dense engine and the serial path
+  reduced_archs   gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b, llama3.1-70b
+                  and qwen3-moe-30b-a3b (MoE, dropless) at reduced widths with
+                  their published GQA groups (G 2, 6, 16, 8, 8, 8), fp32,
+                  biases, norm scales and routers drawn from a seed: the
+                  paged engine on the card gives the CPU's greedy tokens, and
+                  for gemma2 and qwen3-moe so do the dense engine and the
+                  serial path
   reduced_a5      swap preemption (paged, dense and two-call), async staging on
                   and off, the prefix cache with mid-block copies (one case
                   copying into a page a swap-out of the same step gave up),
@@ -112,11 +115,18 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   paged engine, the dense engine (after its checked pass,
                   serve_dense_gemma2_check) and serially, on GEMMA2_SERVE:
                   SERVE with every prompt 4500-7900 tokens, past the window
-  serve_qwen2, serve_chatglm3, serve_qwen3, serve_llama70b
+  moe_layer       one MoE layer of qwen3-moe-30b-a3b at full width (128
+                  experts, top 8), bf16, dropless, at 8 and 520 rows: against
+                  an fp32 reference on the card that loops over the experts
+                  the port chose; its device ms beside the bytes of the
+                  experts chosen and the routed operations
+  serve_qwen2, serve_chatglm3, serve_qwen3, serve_llama70b, serve_qwen3moe
                   SERVE's workload through the paged engine at the published
                   widths of qwen2-1.5b (G 6, biases, tied), chatglm3-6b (G
-                  16, half-dim RoPE, biases) and qwen3-32b (G 8, q/k norms),
-                  all at full depth, and llama3.1-70b at 32 of its 80 layers
+                  16, half-dim RoPE, biases), qwen3-32b (G 8, q/k norms) and
+                  qwen3-moe-30b-a3b (KV 4, G 8, q/k norms, 128 experts top
+                  8, dropless), all at full depth, and llama3.1-70b at 32 of
+                  its 80 layers; qwen3-moe then a profiled window
 
 then the kernels line (each kernel's launches on its main path and on every
 path that ran it, ``launches_by_path``), the card's name and power limit as
@@ -145,6 +155,13 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}  # abs and rel; bf16 against fp32 plai
 # |x|) and P enters the tensor cores in bf16, which moves a row by about 1e-3
 # of its rms; a skipped key block or an ignored softcap moves it by a tenth.
 BF16_ROW = (2.0**-7, 2e-2)
+# a MoE layer in bf16 rounds five times in sequence (the up and gate
+# products, silu, their product, the down product) and then sums K = 8
+# weighted terms that partly cancel, so its error reaches about 0.02 of a
+# row's rms at the 5-sigma tail of a million outputs (on an H100 at 520
+# rows); its rows are held to 2^-7 |x| + 4e-2 rms, and a top-k left
+# unnormalised must still break that FAULT_MARGIN times over.
+MOE_ROW = (2.0**-7, 4e-2)
 # a fault (softcap or window dropped, a broken combine) must break the check
 # this many times over
 FAULT_MARGIN = 3.0
@@ -153,11 +170,18 @@ SERVE = dict(requests=8, prompt_lo=512, prompt_hi=4096, max_new=32, chunk=512,
 # gemma2-2b's paths: SERVE with every prompt past its 4096-token local window
 GEMMA2_SERVE = dict(SERVE, prompt_lo=4500, prompt_hi=7900)
 # the full-width runs of the archs beside Llama3.1-8B: (phase, arch, layers
-# run: None for all), each through the paged engine on SERVE's workload
-ARCH_SERVES = [("serve_qwen2", "qwen2-1.5b", None), ("serve_chatglm3", "chatglm3-6b", None),
-               ("serve_qwen3", "qwen3-32b", None),
+# run: None for all), each through the paged engine on SERVE's workload, and
+# whether a profiled window follows
+ARCH_SERVES = [("serve_qwen2", "qwen2-1.5b", None, False),
+               ("serve_chatglm3", "chatglm3-6b", None, False),
+               ("serve_qwen3", "qwen3-32b", None, False),
                # 141 GB in bf16: its published widths at 32 of its 80 layers
-               ("serve_llama70b", "llama3.1-70b", 32)]
+               ("serve_llama70b", "llama3.1-70b", 32, False),
+               # 56.9 GiB in bf16: all 48 layers fit, with a smaller KV pool
+               ("serve_qwen3moe", "qwen3-moe-30b-a3b", None, True)]
+# moe_layer's row counts: a decode-only step of SERVE (8 rows) and a
+# prefill-bearing one (a 512-token chunk beside 8 decode rows)
+MOE_ROWS = (8, 520)
 # every kernel of the port: its source and the TPU kernel it replaces
 KERNELS = {
     "mixed_paged_attention": ("src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
@@ -474,16 +498,17 @@ def segment_library_calls(torch, case):
     return call, rows
 
 
-def tol_used(got, plain, dtype):
+def tol_used(got, plain, dtype, row=BF16_ROW):
     """The largest error over its allowance (at most 1 passes): fp32 |err| <=
     1e-4 (1 + |plain|); bf16 the tighter of 2e-2 (1 + |plain|) and 2^-7 |plain|
-    + 2e-2 rms of the plain row. NaN anywhere gives NaN, which fails."""
+    + 2e-2 rms of the plain row (``row`` gives those two). NaN anywhere gives
+    NaN, which fails."""
     import torch
 
     err = (got - plain).abs()
     allow = TOL[dtype] * (1 + plain.abs())
     if dtype == "bfloat16":
-        rtol, scale = BF16_ROW
+        rtol, scale = row
         rms = plain.pow(2).mean(dim=(1, 2, 3), keepdim=True).sqrt()
         allow = torch.minimum(allow, rtol * plain.abs() + scale * rms)
     return float((err / allow).max())
@@ -1219,7 +1244,9 @@ def group_parity(torch):
     chatglm3-6b (32 over 2, G 16: a q-tile of 4 rows), d 128, bf16 and fp32,
     at the shapes of their main paths: B1's mixed step and 16 decode rows,
     B2's dense decode-only and prefill-bearing steps, B3's serial decode (G
-    6), B4's 4096-token prompt; every case timed."""
+    6), B4's 4096-token prompt; then B1 at qwen3-moe-30b-a3b's heads (32
+    over 4 KV heads, G 8: ``g8_kv4``), its mixed step and 16 decode rows;
+    every case timed."""
     import numpy as np
 
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1252,6 +1279,15 @@ def group_parity(torch):
             recs[name] = run_flash_case(torch, name, flash_case(
                 torch, seed + 10 + i, 1, 4096, dtype=dtype, cache=8192, **grp))
             torch.cuda.empty_cache()
+    grp = dict(kv=4, g=8, d=128)
+    for i, (dtype, tag) in enumerate(((bf16, "bf16"), (f32, "fp32"))):
+        name = f"g8_kv4_mixed_{tag}"
+        recs[name] = run_case(torch, name, make_case(torch, 740 + i, mixed, page=16,
+                                                     dtype=dtype, **grp))
+        name = f"g8_kv4_decode16_{tag}"
+        recs[name] = run_case(torch, name, make_case(torch, 742 + i, decode16, page=16,
+                                                     dtype=dtype, **grp))
+        torch.cuda.empty_cache()
     return recs
 
 
@@ -1685,20 +1721,50 @@ def engine_bf16(torch):
 
 # the archs that share Llama3.1-8B's paths, each with its published GQA group
 ARCH_GROUPS = {"gemma2-2b": 2, "qwen2-1.5b": 6, "chatglm3-6b": 16, "qwen3-32b": 8,
-               "llama3.1-70b": 8}
+               "llama3.1-70b": 8, "qwen3-moe-30b-a3b": 8}
+# the reduced archs also run through the dense engine and the serial path
+ALL_PATHS = ("gemma2-2b", "qwen3-moe-30b-a3b")
 
 
 def _drawn_leaves(torch, tree, gen):
     """The parameters with every bias drawn from N(0, 0.5^2) and every norm
     scale from 1 + N(0, 0.3^2) (the init makes zeros and ones, which would
-    hide a leaf that the path dropped)."""
+    hide a leaf that the path dropped), and every MoE router from N(0,
+    1/d_model) (the init's std of 0.02 puts its top-k choices within 1e-5 of
+    a tie)."""
     if isinstance(tree, dict):
         return {k: (0.5 * torch.randn(v.shape, generator=gen) if k == "b" else
                     1 + 0.3 * torch.randn(v.shape, generator=gen) if k == "scale" else
-                    _drawn_leaves(torch, v, gen)) for k, v in tree.items()}
+                    {"w": torch.randn(v["w"].shape, generator=gen) * v["w"].shape[0] ** -0.5}
+                    if k == "router" else _drawn_leaves(torch, v, gen))
+                for k, v in tree.items()}
     if isinstance(tree, list):
         return [_drawn_leaves(torch, v, gen) for v in tree]
     return tree
+
+
+@contextlib.contextmanager
+def router_margin(torch):
+    """Yields a list that ends up holding the smallest gap between a token's
+    K-th and (K+1)-th router probability over every MoE call inside (inf
+    without one): a near-tie can flip an expert between two devices."""
+    import repro_torch.models.moe as moe
+
+    seen, route = [], moe.route
+
+    def recording(p, cfg, xf):
+        out = route(p, cfg, xf)
+        top = torch.topk(out[0], cfg.top_k + 1, dim=-1).values
+        seen.append(float((top[:, -2] - top[:, -1]).min()))
+        return out
+
+    moe.route = recording
+    margin = []
+    try:
+        yield margin
+    finally:
+        moe.route = route
+        margin.append(min(seen, default=float("inf")))
 
 
 def _serial_gap(torch, model, params, prompt, n_new, max_len):
@@ -1717,20 +1783,23 @@ def _serial_gap(torch, model, params, prompt, n_new, max_len):
 
 
 def reduced_archs(torch):
-    """The five archs of ``ARCH_GROUPS`` at reduced widths (d_model 64,
-    head_dim 16, two periods) with each one's published group (2 KV heads,
-    2 G query heads: G 2, 6, 16, 8, 8), fp32, biases and norm scales drawn
-    from a seed, gemma2's softcaps at 2.0 and its window of 16 below three
-    of the four prompts: the paged engine on the card (B1) gives the CPU's
-    greedy tokens (plain versions, which the CPU tests hold to the JAX
-    package), and for gemma2 so do the dense engine (B2) and the serial
-    path (B4, B3). Each record carries the smallest top-2 logit gap of the
-    CPU's serial steps."""
+    """The six archs of ``ARCH_GROUPS`` at reduced widths (d_model 64,
+    head_dim 16, two periods; qwen3-moe: 8 experts of width 64, top 2,
+    dropless) with each one's published group (2 KV heads, 2 G query heads:
+    G 2, 6, 16, 8, 8, 8), fp32, biases, norm scales and routers drawn from a
+    seed, gemma2's softcaps at 2.0 and its window of 16 below three of the
+    four prompts: the paged engine on the card (B1) gives the CPU's greedy
+    tokens (plain versions, which the CPU tests hold to the JAX package),
+    and for gemma2 and qwen3-moe (``ALL_PATHS``) so do the dense engine (B2)
+    and the serial path (B4, B3). Each record carries the smallest top-2
+    logit gap of the CPU's serial steps and, for qwen3-moe, the smallest
+    gap between a token's K-th and (K+1)-th router probability in them."""
     import dataclasses
 
     import numpy as np
 
     from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.reduced import dropless
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.models import build_model
     from repro_torch.serving.request import Request
@@ -1743,7 +1812,7 @@ def reduced_archs(torch):
         kw = dict(n_heads=2 * g, n_kv_heads=2)
         if arch == "gemma2-2b":
             kw.update(attn_logit_softcap=2.0, final_logit_softcap=2.0)
-        cfg = dataclasses.replace(reduce_config(get_config(arch), periods=2), **kw)
+        cfg = dropless(dataclasses.replace(reduce_config(get_config(arch), periods=2), **kw))
         cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
         gen = torch.Generator().manual_seed(0)
         params = _drawn_leaves(torch, cpu_model.init(gen), gen)
@@ -1751,7 +1820,7 @@ def reduced_archs(torch):
         cuda_params = _to(params, "cuda")
         rng = np.random.default_rng(1)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 30)]
-        kernels = ("paged", "dense") if arch == "gemma2-2b" else ("paged",)
+        kernels = ("paged", "dense") if arch in ALL_PATHS else ("paged",)
         outs, launches, steps, plain = {}, {}, {}, 0
         for kernel in kernels:
             for device, m, p in (("cpu", cpu_model, params), ("cuda", model, cuda_params)):
@@ -1767,7 +1836,7 @@ def reduced_archs(torch):
                 steps[key] = eng.steps_run
                 if device == "cuda":
                     launches[kernel], plain = counts, plain + p_calls
-        if arch == "gemma2-2b":
+        if arch in ALL_PATHS:
             outs["serial_cpu"] = [serial_reference(cpu_model, params, p, new, max_len=max_len)
                                   for p in prompts]
             reset_counts()
@@ -1776,18 +1845,20 @@ def reduced_archs(torch):
             launches["serial"], p_calls = read_counts()
             plain += p_calls
         L = cfg.n_layers
+        with router_margin(torch) as margin:
+            gap = min(_serial_gap(torch, cpu_model, params, p, new, max_len) for p in prompts)
         rec = dict(phase="reduced_archs", arch=arch, layers=L, heads=cfg.n_heads,
                    kv_heads=cfg.n_kv_heads, group=g, head_dim=cfg.head_dim, dtype="float32",
+                   experts=cfg.n_experts, top_k=cfg.top_k,
                    steps=steps, launches=launches, plain_cuda_calls=plain,
-                   min_top2_gap=min(_serial_gap(torch, cpu_model, params, p, new, max_len)
-                                    for p in prompts),
+                   min_top2_gap=gap, min_router_margin=margin[0],
                    tokens_identical={k[:-5]: outs[k] == outs[k[:-5] + "_cpu"]
                                      for k in outs if k.endswith("_cuda")})
         rec["ok"] = (all(rec["tokens_identical"].values()) and plain == 0
                      and launches["paged"]["mixed_paged_attention"] == L * steps["paged_cuda"]
                      and steps["paged_cuda"] == steps["paged_cpu"]
                      and all(len(o) == new for o in outs["paged_cuda"]))
-        if arch == "gemma2-2b":
+        if arch in ALL_PATHS:
             rec["ok"] = (rec["ok"] and launches["dense"]["paged_attention"] > 0
                          and launches["serial"]["flash_attention"] == L * len(prompts)
                          and launches["serial"]["decode_attention"]
@@ -1797,18 +1868,113 @@ def reduced_archs(torch):
             raise AssertionError(f"reduced_archs {arch}: {rec} {outs}")
 
 
+def moe_layer(torch):
+    """One layer of qwen3-moe-30b-a3b's MoE FFN at full width (128 experts of
+    2048 x 768, top 8, top-k weights normalised), bf16, dropless as serving
+    runs it, on ``MOE_ROWS`` (8 rows: a decode-only step; 520: a 512-token
+    chunk beside 8 decode rows). ``moe_apply`` is held to an independent
+    fp32 reference on the card that takes the port's routing (its choices
+    and weights: the router's logits are bf16, as JAX computes them, and a
+    logit's rounding moves its weight by up to 1%) and loops over the
+    experts chosen; a bf16 row tolerance twice the kernels' (``MOE_ROW``);
+    the reference with the top-k weights left unnormalised must fail it.
+    Dropless is asserted
+    (C == N, no slot at or past C). Device ms (and kernels and host µs a
+    call) beside the bound: the bytes of the distinct experts the rows
+    choose, the router, x and y over 3.35 TB/s, or the routed operations (6
+    d f a (token, slot), 2 d E a token for the router) over 989 TFLOP/s;
+    and what the capacity layout does instead: every expert read, and E (C
+    + 1) rows through each expert's FFN."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import dropless
+    from repro_torch.models import moe
+
+    cfg = dropless(get_config("qwen3-moe-30b-a3b"))
+    E, K, d, f = cfg.n_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = moe.moe_init(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+    recs = {}
+    for n in MOE_ROWS:
+        x = torch.randn((1, n, d), generator=gen, device="cuda").to(torch.bfloat16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, aux = moe.moe_apply(p, cfg, x)
+        torch.cuda.synchronize()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        xf = x[0]
+        probs, top_w, top_i, slot_pos, _ = moe.route(p, cfg, xf)
+        C = moe.expert_capacity(n, cfg)
+        top = torch.topk(probs, K + 1, dim=-1).values
+        # the reference: fp32 from the same bf16 inputs and weights and the
+        # port's routing, one expert at a time
+        x32, w32, p32 = xf.float(), top_w.float(), probs.gather(1, top_i)
+        ref, unnormalised = torch.zeros_like(x32), torch.zeros_like(x32)
+        chosen = top_i.unique()
+        for e in chosen.tolist():
+            rows, slot = (top_i == e).nonzero(as_tuple=True)
+            h = x32[rows]
+            ex = {k: v["w"][e].float() for k, v in p["experts"].items()}
+            out = (F.silu(h @ ex["gate"]) * (h @ ex["up"])) @ ex["down"]
+            ref.index_add_(0, rows, out * w32[rows, slot][:, None])
+            unnormalised.index_add_(0, rows, out * p32[rows, slot][:, None])
+        first = torch.zeros_like(probs).scatter_(1, top_i[:, :1], 1.0)
+        ref_aux = float(E * (probs.mean(dim=0) * first.mean(dim=0)).sum())
+        rows4 = (n, 1, 1, d)
+        used = tol_used(y[0].float().view(rows4), ref.view(rows4), "bfloat16", MOE_ROW)
+        fault_used = tol_used(unnormalised.view(rows4), ref.view(rows4), "bfloat16", MOE_ROW)
+        err = float((y[0].float() - ref).abs().max())
+        rel_rms = float((y[0].float() - ref).norm() / ref.norm())
+        del ref, unnormalised, x32
+        distinct = chosen.numel()
+        nbytes = distinct * 3 * d * f * 2 + d * E * 2 + 2 * n * d * 2
+        flops = n * K * 6 * d * f + 2 * n * d * E
+        bound, by = bound_of(nbytes, flops, "bfloat16")
+        call = lambda: moe.moe_apply(p, cfg, x)  # noqa: E731
+        ms, how, parts, records = device_ms(torch, call, reps=10)
+        rec = dict(phase="moe_layer", case=f"n{n}", rows=n, experts=E, top_k=K, d_model=d,
+                   moe_d_ff=f, dtype="bfloat16", capacity=C,
+                   dropless=C == n and bool((slot_pos < C).all()),
+                   experts_chosen=distinct,
+                   min_router_margin=float((top[:, K - 1] - top[:, K]).min()),
+                   max_abs_err=err, rel_rms_err=rel_rms,
+                   tol_used=used, fault_tol_used={"unnormalised_topk": fault_used},
+                   finite=bool(torch.isfinite(y).all()), aux=float(aux), ref_aux=ref_aux,
+                   ms=ms, timing=how, kernel_parts=parts,
+                   kernels_a_call=sum(records.values()) / 10 if records else None,
+                   host_us=host_us(torch, call, 10), bound_ms=bound, bound_by=by,
+                   bytes=nbytes, flops=flops,
+                   computed_flops=E * (C + 1) * 6 * d * f + 2 * n * d * E,
+                   computed_over_routed=(E * (C + 1)) / (n * K),
+                   expert_bytes_read=E * 3 * d * f * 2, peak_extra_gib=peak_gib)
+        rec["ok"] = (rec["dropless"] and rec["finite"] and used <= 1
+                     and fault_used >= FAULT_MARGIN
+                     and abs(rec["aux"] - ref_aux) <= 2e-2 * abs(ref_aux))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"moe_layer n{n}: {rec}")
+        recs[n] = rec
+    del p
+    torch.cuda.empty_cache()
+    return recs
+
+
 def full_model(torch, arch="llama3.1-8b", layers=None):
     """A model at its published widths, bf16, weights drawn on the card from
     seed 0, at its published depth or, with ``layers``, its first layers
     (``launch.serve.depth_cut``): Llama3.1-8B (all 32 layers; shared by
     serve, serve_dense and serial), Mamba2-2.7B (all 64; serve_mamba),
-    gemma2-2b (all 26; its three paths) or an arch of ``ARCH_SERVES``."""
+    gemma2-2b (all 26; its three paths) or an arch of ``ARCH_SERVES``. MoE
+    dispatch is dropless, as the launcher serves it."""
     from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import dropless
     from repro_torch.launch.serve import depth_cut
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = dropless(get_config(arch))  # serving's MoE dispatch never drops
     published = cfg.n_layers
     if layers is not None:
         cfg = depth_cut(cfg, layers)
@@ -2961,9 +3127,10 @@ def main() -> int:
                             "serial_gemma2"))
     del model, params
     torch.cuda.empty_cache()
-    for phase, arch, layers in ARCH_SERVES:
+    moe_layer(torch)
+    for phase, arch, layers, profile in ARCH_SERVES:
         model, params, setup = full_model(torch, arch, layers)
-        arch_runs.append(serve(torch, smi, model, params, setup, phase=phase, profile=False))
+        arch_runs.append(serve(torch, smi, model, params, setup, phase=phase, profile=profile))
         del model, params
         torch.cuda.empty_cache()
 
@@ -2973,7 +3140,8 @@ def main() -> int:
     paths = {"mixed_paged_attention": (served, ["mixed_bf16", "gemma2_mixed_bf16",
                                                 "decode16_bf16", "decode_long_bf16",
                                                 "g6_mixed_bf16", "g6_decode16_bf16",
-                                                "g16_mixed_bf16", "g16_decode16_bf16"]),
+                                                "g16_mixed_bf16", "g16_decode16_bf16",
+                                                "g8_kv4_mixed_bf16", "g8_kv4_decode16_bf16"]),
              "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16",
                                                 "b2_gemma2_dense_engine_bf16",
                                                 "b2_gemma2_dense_prefill_bf16",

@@ -2,8 +2,9 @@
 
 The PyTorch counterpart of the JAX package's ``core/packed_step.py``. The
 step takes a flat token set — one token per decoding request plus chunks of
-prefilling requests — and runs every linear and FFN op over the packed
-(N, d) token matrix, so the weights stream from device memory once per step.
+prefilling requests — and runs every linear and FFN op (a MoE FFN routes
+the N rows as one batch) over the packed (N, d) token matrix, so the weights
+stream from device memory once per step.
 Every row's new K/V is written first, then one attention call serves all
 rows. Two realizations, one view class each:
 
@@ -36,6 +37,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.paged_attention import mixed_paged_attention, paged_attention
 from repro_torch.models.layers import dense, ffn, rms_norm, rope_angles, rotate
 from repro_torch.models.model import Model
+from repro_torch.models.moe import moe_apply
 
 
 def supports_packed(cfg: ModelConfig) -> bool:
@@ -150,7 +152,10 @@ def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, 
     x = x + y
     if spec.ffn != "none":
         hn = rms_norm(p["norm2"], x, cfg.norm_eps)
-        y = ffn(p["ffn"], hn, cfg.act, cfg.glu)
+        if spec.ffn == "dense":
+            y = ffn(p["ffn"], hn, cfg.act, cfg.glu)
+        else:
+            y = moe_apply(p["ffn"], cfg, hn[None])[0][0]  # (1, N, d) -> (N, d)
         if cfg.post_norm:
             y = rms_norm(p["post_norm2"], y, cfg.norm_eps)
         x = x + y

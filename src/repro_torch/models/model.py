@@ -2,11 +2,11 @@
 and the KV page pool.
 
 The PyTorch counterpart of the JAX package's ``Model`` for the archs the
-port serves so far (GQA attention and Mamba2 mixers, dense FFNs or none; no
-MLA/MoE/Mamba1/enc-dec). The parameter tree follows ``Model.init`` /
-``stack.layer_init`` / ``attention.attn_init`` / ``mamba.mamba2_init`` key
-for key, except that layers are a Python list in layer order where JAX
-stacks them over scan periods.
+port serves so far (GQA attention and Mamba2 mixers; dense FFNs, MoE FFNs or
+none; no MLA/Mamba1/enc-dec). The parameter tree follows ``Model.init`` /
+``stack.layer_init`` / ``attention.attn_init`` / ``mamba.mamba2_init`` /
+``moe.moe_init`` key for key, except that layers are a Python list in layer
+order where JAX stacks them over scan periods.
 
 The serial path is JAX's: ``forward`` (one-shot causal), ``init_cache``,
 ``prefill`` and ``decode_step`` over per-layer caches (a dense ``(B,
@@ -41,6 +41,7 @@ from repro_torch.models.layers import (
     truncated_normal,
 )
 from repro_torch.models.mamba import mamba2_init
+from repro_torch.models.moe import moe_init
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -55,9 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mla:
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet (ROADMAP.md, deepseek-v2 slice)")
-    if any(s.ffn == "moe" for s in cfg.layer_specs):
-        raise NotImplementedError(
-            f"{cfg.name}: MoE FFNs are not ported yet (ROADMAP.md, qwen3-moe slice)")
     if cfg.learned_pos or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: learned positions / frontends are not ported yet")
@@ -102,7 +100,8 @@ def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
         p["post_norm1"] = rms_norm_init(d, dtype=dtype, device=device)
     if spec.ffn != "none":
         p["norm2"] = rms_norm_init(d, dtype=dtype, device=device)
-        p["ffn"] = ffn_init(d, cfg.d_ff, glu=cfg.glu, **kw)
+        p["ffn"] = (moe_init(cfg, **kw) if spec.ffn == "moe" else
+                    ffn_init(d, cfg.d_ff, glu=cfg.glu, **kw))
         if cfg.post_norm:
             p["post_norm2"] = rms_norm_init(d, dtype=dtype, device=device)
     return p
@@ -153,8 +152,8 @@ class Model:
     @torch.inference_mode()
     def forward(self, params, batch) -> torch.Tensor:
         """Full-sequence causal logits (B, S, vocab), fp32, of
-        ``batch["tokens"]`` (B, S). (JAX also returns the MoE auxiliary loss,
-        which is 0 without MoE.)"""
+        ``batch["tokens"]`` (B, S). (JAX also returns the MoE auxiliary loss;
+        the port drops it until ``loss`` is ported with training.)"""
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = _positions_from_index(0, B, S, self.device)

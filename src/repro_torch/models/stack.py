@@ -1,7 +1,8 @@
 """The decoder stack of the serial execution path.
 
 The PyTorch counterpart of the JAX package's ``models/stack.py`` for
-attention and Mamba2 mixers, with dense FFNs or none. JAX stacks each period
+attention and Mamba2 mixers, with dense FFNs, MoE FFNs (whose auxiliary
+loss is dropped until training needs it) or none. JAX stacks each period
 position's parameters and caches over periods and walks them with
 ``lax.scan``; the port keeps one entry per layer in layer order
 (``Model.init``'s ``"layers"``, and the per-layer cache list below) and walks
@@ -17,6 +18,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import CacheCall, attn_apply, kv_cache_init
 from repro_torch.models.layers import ffn, rms_norm
 from repro_torch.models.mamba import mamba2_apply, mamba2_state_init
+from repro_torch.models.moe import moe_apply
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, *,
@@ -45,7 +47,10 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, h, angles, *, cache=None,
     h = h + y
     if spec.ffn != "none":
         hn = rms_norm(p["norm2"], h, cfg.norm_eps)
-        y = ffn(p["ffn"], hn, cfg.act, cfg.glu)
+        if spec.ffn == "dense":
+            y = ffn(p["ffn"], hn, cfg.act, cfg.glu)
+        else:
+            y, _ = moe_apply(p["ffn"], cfg, hn)
         if cfg.post_norm:
             y = rms_norm(p["post_norm2"], y, cfg.norm_eps)
         h = h + y

@@ -1,8 +1,9 @@
-"""The port's model path on the five dense GQA archs it serves beside
-llama3.1-8b -- gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b and
-llama3.1-70b -- against the JAX package, at ``reduce_config`` widths (d_model
-64, head_dim 16, two periods) but with each arch's published GQA group: 2
-KV heads and ``2 * G`` query heads, G 2, 6, 16, 8 and 8.
+"""The port's model path on the archs it serves beside llama3.1-8b --
+gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b, llama3.1-70b and the MoE
+qwen3-moe-30b-a3b -- against the JAX package, at ``reduce_config`` widths
+(d_model 64, head_dim 16, two periods; qwen3-moe: 8 experts of width 64, top
+2, dispatch dropless as serving runs it) but with each arch's published GQA
+group: 2 KV heads and ``2 * G`` query heads, G 2, 6, 16, 8, 8 and 8.
 
 * every leaf these archs add (q/k/v biases, q/k norm scales, post-norms,
   tied embeddings) reaches the port: JAX initialises biases to zeros and
@@ -14,7 +15,8 @@ KV heads and ``2 * G`` query heads, G 2, 6, 16, 8 and 8.
 * a fault case for each feature, made on the port's side only, that the
   same comparison must reject: gemma2 without its softcaps, its window or
   its post-norms; chatglm3 with RoPE over the whole head; qwen2 without
-  its biases; qwen3 without its q/k norms.
+  its biases; qwen3 without its q/k norms; qwen3-moe with its top-k
+  router weights left unnormalised.
 
 gemma2's softcaps are set on both sides to 2.0 (attention and final), small
 enough to bend reduced-width scores and logits; one case keeps the
@@ -35,12 +37,14 @@ import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs import get_config, reduce_config  # noqa: E402
+from repro.configs.reduced import dropless  # noqa: E402
 from repro.core.packed_step import PagedView as JaxPagedView  # noqa: E402
 from repro.core.packed_step import packed_step as jax_packed_step  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.serving.engine import _init_page_pool  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduce_config as t_reduce_config  # noqa: E402
+from repro_torch.configs.reduced import dropless as t_dropless  # noqa: E402
 from repro_torch.core.packed_step import DenseView, PagedView, packed_step  # noqa: E402
 from repro_torch.kernels.paged_attention import q_tile_rows, row_tiles  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -49,7 +53,7 @@ from repro_torch.weights import caches_from_jax, from_jax_params  # noqa: E402
 TOL = dict(rtol=1e-4, atol=1e-4)
 FAULT_MARGIN = 100  # a fault moves some logit this many tolerances
 GROUPS = {"gemma2-2b": 2, "qwen2-1.5b": 6, "chatglm3-6b": 16, "qwen3-32b": 8,
-          "llama3.1-70b": 8}
+          "llama3.1-70b": 8, "qwen3-moe-30b-a3b": 8}
 ARCHS = list(GROUPS)
 SMALL_CAPS = dict(attn_logit_softcap=2.0, final_logit_softcap=2.0)
 PAGE, N_SLOTS, PPS = 4, 3, 10  # page size, decode slots, pages per slot
@@ -64,18 +68,25 @@ def reduced_pair(arch, **over):
     if arch == "gemma2-2b":
         kw.update(SMALL_CAPS)
     kw.update(over)
-    return (dataclasses.replace(reduce_config(get_config(arch), periods=2), **kw),
-            dataclasses.replace(t_reduce_config(t_get_config(arch), periods=2), **kw))
+    # MoE dispatch without drops, as serving runs it (no row depends on another)
+    return (dropless(dataclasses.replace(reduce_config(get_config(arch), periods=2), **kw)),
+            t_dropless(dataclasses.replace(t_reduce_config(t_get_config(arch), periods=2),
+                                           **kw)))
 
 
 def drawn_leaves(tree, rng):
     """The parameter tree (numpy) with every bias drawn from N(0, 0.5^2) and
     every norm scale from 1 + N(0, 0.3^2), so that a leaf lost on the way
-    moves the logits."""
+    moves the logits; and every MoE router from N(0, 1/d_model) (the init's
+    std of 0.02 leaves the router's probabilities so nearly equal that its
+    top-k choices sit within 1e-5 of a tie)."""
     if isinstance(tree, dict):
         return {k: (rng.normal(0.0, 0.5, np.shape(v)).astype(np.float32) if k == "b" else
                     (1.0 + rng.normal(0.0, 0.3, np.shape(v))).astype(np.float32)
-                    if k == "scale" else drawn_leaves(v, rng))
+                    if k == "scale" else
+                    {"w": rng.normal(0.0, np.shape(v["w"])[-2] ** -0.5,
+                                     np.shape(v["w"])).astype(np.float32)}
+                    if k == "router" else drawn_leaves(v, rng))
                 for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [drawn_leaves(v, rng) for v in tree]
@@ -117,6 +128,8 @@ def _faulty(arch, fault, model, params):
         cfg = dataclasses.replace(cfg, rotary_pct=1.0)
     elif fault == "no_qk_norm":
         cfg = dataclasses.replace(cfg, qk_norm=False)
+    elif fault == "no_norm_topk":
+        cfg = dataclasses.replace(cfg, norm_topk=False)
     elif fault == "no_biases":
         params = dict(params, layers=[
             dict(layer, mixer={k: ({"w": v["w"]} if isinstance(v, dict) and "w" in v else v)
@@ -129,7 +142,8 @@ def _faulty(arch, fault, model, params):
 
 FAULTS = [("gemma2-2b", "no_softcaps"), ("gemma2-2b", "no_window"),
           ("gemma2-2b", "no_post_norms"), ("chatglm3-6b", "full_rotary"),
-          ("qwen2-1.5b", "no_biases"), ("qwen3-32b", "no_qk_norm")]
+          ("qwen2-1.5b", "no_biases"), ("qwen3-32b", "no_qk_norm"),
+          ("qwen3-moe-30b-a3b", "no_norm_topk")]
 
 
 # ---------------------------------------------------------------------------

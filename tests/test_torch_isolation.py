@@ -25,6 +25,7 @@ COPIES = [
     "configs/__init__.py", "configs/base.py", "configs/llama3_1_8b.py", "configs/mamba2_2_7b.py",
     "configs/reduced.py", "configs/gemma2_2b.py", "configs/qwen2_1_5b.py",
     "configs/chatglm3_6b.py", "configs/qwen3_32b.py", "configs/llama3_1_70b.py",
+    "configs/qwen3_moe_30b_a3b.py",
     "serving/request.py", "serving/metrics.py", "serving/workload.py",
     "memory/__init__.py", "memory/block_allocator.py", "memory/tiers.py",
     "memory/prefix_cache.py", "memory/manager.py", "memory/prefetch_queue.py",
@@ -72,7 +73,7 @@ EXPECTED = [
     "repro_torch.kernels.ops", "repro_torch.kernels.decode_attention",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.paged_attention",
     "repro_torch.kernels.ref", "repro_torch.kernels.ssd", "repro_torch.models.attention",
-    "repro_torch.models.mamba", "repro_torch.models.stack",
+    "repro_torch.models.mamba", "repro_torch.models.moe", "repro_torch.models.stack",
     "repro_torch.models.model", "repro_torch.serving.serial", "repro_torch.serving.engine",
     "repro_torch.core.packed_step", "repro_torch.weights",
 ]
