@@ -64,11 +64,12 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   same greedy tokens
   reduced_archs   gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b, llama3.1-70b
                   and qwen3-moe-30b-a3b (MoE, dropless) at reduced widths with
-                  their published GQA groups (G 2, 6, 16, 8, 8, 8), fp32,
+                  their published GQA groups (G 2, 6, 16, 8, 8, 8), and
+                  deepseek-v2-236b (MLA) at reduce_config's widths, fp32,
                   biases, norm scales and routers drawn from a seed: the
                   paged engine on the card gives the CPU's greedy tokens, and
-                  for gemma2 and qwen3-moe so do the dense engine and the
-                  serial path
+                  for gemma2, qwen3-moe and deepseek-v2 so do the dense
+                  engine and the serial path
   reduced_a5      swap preemption (paged, dense and two-call), async staging on
                   and off, the prefix cache with mid-block copies (one case
                   copying into a page a swap-out of the same step gave up),
@@ -120,13 +121,27 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   an fp32 reference on the card that loops over the experts
                   the port chose; its device ms beside the bytes of the
                   experts chosen and the routed operations
-  serve_qwen2, serve_chatglm3, serve_qwen3, serve_llama70b, serve_qwen3moe
+  mla_layer       one MLA layer of deepseek-v2-236b at full width (128 heads,
+                  kv_lora_rank 512), bf16, through the paged packed step at
+                  SERVE's decode-only (8 rows, 1K-4K) and prefill-bearing (a
+                  512-row chunk at 3.5K beside them) shapes: against JAX's
+                  formula untiled in fp32 on the card at the kernels' bf16
+                  row allowance, JAX's formula in bf16 held to the same
+                  reference beside it, the online softmax without its
+                  rescale rejected; device ms beside the weights' and the
+                  segments' latent bytes, the gathers' share; peak extra
+                  memory <= 1 GiB
+  serve_qwen2, serve_chatglm3, serve_qwen3, serve_llama70b, serve_qwen3moe,
+  serve_deepseek
                   SERVE's workload through the paged engine at the published
                   widths of qwen2-1.5b (G 6, biases, tied), chatglm3-6b (G
                   16, half-dim RoPE, biases), qwen3-32b (G 8, q/k norms) and
                   qwen3-moe-30b-a3b (KV 4, G 8, q/k norms, 128 experts top
-                  8, dropless), all at full depth, and llama3.1-70b at 32 of
-                  its 80 layers; qwen3-moe then a profiled window
+                  8, dropless), all at full depth, llama3.1-70b at 32 of
+                  its 80 layers and deepseek-v2-236b (MLA, 160 experts top
+                  6, two shared, dropless) at 8 of its 60, its pool sized
+                  at the latent's 1152 B a token-layer and no kernel
+                  launched; qwen3-moe and deepseek then a profiled window
 
 then the kernels line (each kernel's launches on its main path and on every
 path that ran it, ``launches_by_path``), the card's name and power limit as
@@ -178,10 +193,20 @@ ARCH_SERVES = [("serve_qwen2", "qwen2-1.5b", None, False),
                # 141 GB in bf16: its published widths at 32 of its 80 layers
                ("serve_llama70b", "llama3.1-70b", 32, False),
                # 56.9 GiB in bf16: all 48 layers fit, with a smaller KV pool
-               ("serve_qwen3moe", "qwen3-moe-30b-a3b", None, True)]
+               ("serve_qwen3moe", "qwen3-moe-30b-a3b", None, True),
+               # MLA, 160 experts: 439 GiB in bf16; 8 of its 60 layers (the
+               # dense layer 0 and 7 MoE layers, 54.4 GiB); no kernel runs
+               ("serve_deepseek", "deepseek-v2-236b", 8, True)]
 # moe_layer's row counts: a decode-only step of SERVE (8 rows) and a
 # prefill-bearing one (a 512-token chunk beside 8 decode rows)
 MOE_ROWS = (8, 520)
+# mla_layer's step shapes: SERVE's decode-only step (8 rows at contexts of
+# 1K-4K) and its prefill-bearing one (a 512-token chunk at 3.5K context,
+# positions 3072..3583, beside the 8 decode rows); one call's extra memory
+# may not pass 1 GiB
+MLA_DECODE_CTX = (1024, 1463, 1902, 2341, 2779, 3218, 3657, 4096)
+MLA_CHUNK = (3072, 512)
+MLA_PEAK_GIB = 1.0
 # every kernel of the port: its source and the TPU kernel it replaces
 KERNELS = {
     "mixed_paged_attention": ("src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
@@ -1722,8 +1747,10 @@ def engine_bf16(torch):
 # the archs that share Llama3.1-8B's paths, each with its published GQA group
 ARCH_GROUPS = {"gemma2-2b": 2, "qwen2-1.5b": 6, "chatglm3-6b": 16, "qwen3-32b": 8,
                "llama3.1-70b": 8, "qwen3-moe-30b-a3b": 8}
+# and MLA's deepseek-v2 at reduce_config's widths (4 heads over one latent)
+MLA_ARCHS = ("deepseek-v2-236b",)
 # the reduced archs also run through the dense engine and the serial path
-ALL_PATHS = ("gemma2-2b", "qwen3-moe-30b-a3b")
+ALL_PATHS = ("gemma2-2b", "qwen3-moe-30b-a3b", "deepseek-v2-236b")
 
 
 def _drawn_leaves(torch, tree, gen):
@@ -1793,7 +1820,10 @@ def reduced_archs(torch):
     and for gemma2 and qwen3-moe (``ALL_PATHS``) so do the dense engine (B2)
     and the serial path (B4, B3). Each record carries the smallest top-2
     logit gap of the CPU's serial steps and, for qwen3-moe, the smallest
-    gap between a token's K-th and (K+1)-th router probability in them."""
+    gap between a token's K-th and (K+1)-th router probability in them.
+    deepseek-v2 (``MLA_ARCHS``: MLA, 8 experts of width 64, top 2, two
+    shared) runs at ``reduce_config``'s own widths on all three paths, its
+    latent attention plain PyTorch on both devices: no kernel may launch."""
     import dataclasses
 
     import numpy as np
@@ -1808,8 +1838,8 @@ def reduced_archs(torch):
     sched = dict(chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
                  max_concurrent_prefills=2, kv_block_size=4, num_kv_blocks=16)
     new, max_len = 12, 64
-    for arch, g in ARCH_GROUPS.items():
-        kw = dict(n_heads=2 * g, n_kv_heads=2)
+    for arch, g in list(ARCH_GROUPS.items()) + [(a, None) for a in MLA_ARCHS]:
+        kw = {} if g is None else dict(n_heads=2 * g, n_kv_heads=2)
         if arch == "gemma2-2b":
             kw.update(attn_logit_softcap=2.0, final_logit_softcap=2.0)
         cfg = dropless(dataclasses.replace(reduce_config(get_config(arch), periods=2), **kw))
@@ -1855,14 +1885,19 @@ def reduced_archs(torch):
                    tokens_identical={k[:-5]: outs[k] == outs[k[:-5] + "_cpu"]
                                      for k in outs if k.endswith("_cuda")})
         rec["ok"] = (all(rec["tokens_identical"].values()) and plain == 0
-                     and launches["paged"]["mixed_paged_attention"] == L * steps["paged_cuda"]
                      and steps["paged_cuda"] == steps["paged_cpu"]
                      and all(len(o) == new for o in outs["paged_cuda"]))
-        if arch in ALL_PATHS:
-            rec["ok"] = (rec["ok"] and launches["dense"]["paged_attention"] > 0
+        if cfg.mla:
+            rec["ok"] = rec["ok"] and not any(n for c in launches.values() for n in c.values())
+        elif arch in ALL_PATHS:
+            rec["ok"] = (rec["ok"] and launches["paged"]["mixed_paged_attention"]
+                         == L * steps["paged_cuda"] and launches["dense"]["paged_attention"] > 0
                          and launches["serial"]["flash_attention"] == L * len(prompts)
                          and launches["serial"]["decode_attention"]
                          == L * len(prompts) * (new - 1))
+        else:
+            rec["ok"] = (rec["ok"] and launches["paged"]["mixed_paged_attention"]
+                         == L * steps["paged_cuda"])
         emit(rec)
         if not rec["ok"]:
             raise AssertionError(f"reduced_archs {arch}: {rec} {outs}")
@@ -1956,6 +1991,210 @@ def moe_layer(torch):
         if not rec["ok"]:
             raise AssertionError(f"moe_layer n{n}: {rec}")
         recs[n] = rec
+    del p
+    torch.cuda.empty_cache()
+    return recs
+
+
+def mla_step(torch, cfg, chunk, gen):
+    """One paged packed step of ``mla_layer``: SERVE's eight decode rows at
+    ``MLA_DECODE_CTX`` and, with ``chunk`` (start, length), a prefill chunk
+    of a ninth slot; page 16, shuffled physical pages, the block tables
+    sliced to the longest context, segments padded to a power of two as the
+    engine pads them. Returns (x, positions, view, pool, row tables) on the
+    card, the pool's latent drawn from N(0, 1) in bf16."""
+    from repro_torch.core.packed_step import PagedView
+
+    page = SERVE["page"]
+    ctx = list(MLA_DECODE_CTX) + ([chunk[0] + chunk[1]] if chunk else [])
+    n_slots, nd = len(ctx), len(MLA_DECODE_CTX)
+    pages = [-(-c // page) for c in ctx]
+    nb, n_pages = max(pages), sum(pages)
+    perm = torch.randperm(n_pages, generator=torch.Generator().manual_seed(1))
+    bt = torch.full((n_slots + 1, nb), n_pages, dtype=torch.int32)  # scratch page last
+    first = 0
+    for s, n in enumerate(pages):
+        bt[s, :n] = perm[first:first + n]
+        first += n
+    slots = list(range(nd)) + ([nd] * chunk[1] if chunk else [])
+    positions = [c - 1 for c in MLA_DECODE_CTX] + (list(range(chunk[0], chunk[0] + chunk[1]))
+                                                    if chunk else [])
+    n_seg = nd + (1 if chunk else 0)
+    sb = 1 << (n_seg - 1).bit_length()
+    cu = [0] + list(range(1, nd + 1)) + ([nd + chunk[1]] if chunk else [])
+    cu += [cu[-1]] * (sb + 1 - len(cu))
+    kv_lens = ctx + [0] * (sb - n_seg)
+    seg_slots = list(range(n_seg)) + [n_slots] * (sb - n_seg)
+    dev = "cuda"
+    as_t = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)  # noqa: E731
+    view = PagedView(bt.to(dev), page, cu_q_lens=as_t(cu), kv_lens=as_t(kv_lens),
+                     seg_slots=as_t(seg_slots))
+    pool = {"ckv": torch.randn((n_pages + 1, page, cfg.kv_lora_rank), generator=gen,
+                               device=dev).to(torch.bfloat16),
+            "krope": torch.randn((n_pages + 1, page, cfg.qk_rope_head_dim), generator=gen,
+                                 device=dev).to(torch.bfloat16)}
+    x = torch.randn((len(slots), cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    return x, as_t(positions), as_t(slots), view, pool, ctx
+
+
+def mla_plain(torch, p, cfg, x, positions, slots, view, pool, dtype):
+    """JAX's ``_packed_mla`` formula, untiled, on the card, with the
+    weights, x and the pool taken to ``dtype`` first: every row's whole
+    context gathered through its slot's table (``cc[tables]`` per row, 64
+    rows at a time so that it fits), scores drawn in ``dtype`` and softmaxed
+    in fp32 over all keys, probabilities in ``dtype``. In fp32 it is the
+    reference; in bf16 it rounds where JAX does. Writes this step's latent
+    into a copy of the pool first."""
+    from repro_torch.models.attention import NEG_INF, mla_qkv_rope
+    from repro_torch.models.layers import dense, rope_angles, rope_freqs
+
+    p = {k: {n: t.to(dtype) for n, t in v.items()} for k, v in p.items()}
+    x, pool = x.to(dtype), {k: v.to(dtype) for k, v in pool.items()}
+    H, L = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    inv_freq = rope_freqs(rope, 1.0, cfg.rope_theta, device="cuda")
+    q_nope, q_rope, ckv, krope = mla_qkv_rope(p, cfg, x, rope_angles(positions, inv_freq))
+    cc, cr = pool["ckv"].clone(), pool["krope"].clone()
+    pages, offs = view.write_index(slots, positions)
+    cc[pages, offs] = ckv.to(cc.dtype)
+    cr[pages, offs] = krope.to(cr.dtype)
+    w_up = p["kv_up"]["w"].view(L, H, nope + vh)
+    q_eff = torch.einsum("nhp,lhp->nhl", q_nope, w_up[..., :nope])
+    tabs = view.block_tables[slots.long()].long()
+    K = tabs.shape[1] * view.page_size
+    out = []
+    for r0 in range(0, x.shape[0], 64):
+        r = slice(r0, r0 + 64)
+        n = tabs[r].shape[0]
+        c, kr = cc[tabs[r]].view(n, K, L), cr[tabs[r]].view(n, K, rope)
+        s = (torch.einsum("nhl,nsl->nhs", q_eff[r], c)
+             + torch.einsum("nhr,nsr->nhs", q_rope[r], kr)).float() / (nope + rope) ** 0.5
+        dead = torch.arange(K, device="cuda")[None, :] > positions[r, None]
+        s = s.masked_fill(dead[:, None, :], NEG_INF)
+        probs = torch.softmax(s, dim=-1).to(x.dtype)
+        o_lat = torch.einsum("nhs,nsl->nhl", probs, c)
+        out.append(torch.einsum("nhl,lhv->nhv", o_lat, w_up[..., nope:]).reshape(n, H * vh))
+    return dense(p["wo"], torch.cat(out))
+
+
+def mla_layer(torch):
+    """One MLA layer of deepseek-v2-236b at its published widths (128 heads,
+    q_lora_rank 1536, kv_lora_rank 512, RoPE 64, values 128), bf16, weights
+    drawn from seed 0 (norm scales from 1 + N(0, 0.3^2)), through the paged
+    packed step's ``_packed_mla`` at SERVE's two step shapes: decode-only (8
+    rows at 1K-4K) and prefill-bearing (a 512-row chunk at 3.5K beside the 8
+    decode rows). Held to ``mla_plain`` in fp32 (JAX's formula, untiled, on
+    the same bf16 inputs) at ``BF16_ROW``, the kernels' row allowance;
+    ``control_tol_used`` holds JAX's formula in bf16 to the same reference
+    at the same allowance, to show what bf16 alone costs. The online
+    softmax without its rescale must fail it ``FAULT_MARGIN`` times over
+    where a row spans more than one key tile. Device ms (and kernels and
+    host µs a call) beside the bound: the attention weights once, each
+    segment's latent once, x, y and the rows' new latent, over 3.35 TB/s,
+    or the step's operations over 989 TFLOP/s; the device ms of the
+    per-row key copies alone (``PagedView.attend_latent`` gathers each
+    segment's pages once, then copies every key tile once for each row:
+    ``row_copy_bytes`` written a call); peak extra memory of one call, at
+    most ``MLA_PEAK_GIB``."""
+    import inspect
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import packed_step as ps
+    from repro_torch.models import attention
+    from repro_torch.models.layers import rope_angles, rope_freqs
+
+    cfg = get_config("deepseek-v2-236b")
+    H, L, R = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nope, vh, d = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.d_model
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = attention.attn_init(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+    p = {k: ({"scale": 1 + 0.3 * torch.randn(v["scale"].shape, generator=gen, device="cuda")}
+             if "scale" in v else v) for k, v in p.items()}
+    p = {k: {n: t.to(torch.bfloat16) for n, t in v.items()} for k, v in p.items()}
+    weight_bytes = sum(t.numel() * t.element_size() for v in p.values() for t in v.values())
+    inv_freq = rope_freqs(R, 1.0, cfg.rope_theta, device="cuda")
+    src = inspect.getsource(attention.latent_attention)
+    fault_mod = types.ModuleType("no_rescale")
+    fault_mod.__dict__.update(attention.__dict__)
+    old = "alpha = torch.exp(m - m_new)"
+    assert old in src
+    exec(compile(src.replace(old, "alpha = torch.ones_like(m)"), "no_rescale", "exec"),
+         fault_mod.__dict__)
+    recs = {}
+    for name, chunk in (("decode8", None), ("prefill520", MLA_CHUNK)):
+        x, positions, slots, view, pool, ctx = mla_step(torch, cfg, chunk, gen)
+        N = x.shape[0]
+        K = view.block_tables.shape[1] * view.page_size
+        angles = rope_angles(positions, inv_freq)
+        write_index = view.write_index(slots, positions)
+        call = lambda: ps._packed_mla(p, cfg, x, positions, angles, pool, view,  # noqa: E731
+                                      write_index)
+        rows4 = (N, 1, 1, d)
+        plain = mla_plain(torch, p, cfg, x, positions, slots, view, pool, torch.float32)
+        control = tol_used(
+            mla_plain(torch, p, cfg, x, positions, slots, view, pool, torch.bfloat16)
+            .float().view(rows4), plain.view(rows4), "bfloat16")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = call()
+        torch.cuda.synchronize()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        used = tol_used(y.float().view(rows4), plain.view(rows4), "bfloat16")
+        tile = attention.mla_key_tile(N, H, K, L + R, 2)
+        fault_used = None
+        if tile < max(ctx):  # some row spans more than one key tile
+            real = attention.latent_attention
+            attention.latent_attention = fault_mod.latent_attention
+            try:
+                bad = call()
+            finally:
+                attention.latent_attention = real
+            fault_used = tol_used(bad.float().view(rows4), plain.view(rows4), "bfloat16")
+        latent = sum(ctx) * (L + R) * 2
+        nbytes = weight_bytes + latent + 2 * N * d * 2 + N * (L + R) * 2
+        keys = sum(ctx[:len(MLA_DECODE_CTX)]) + (
+            sum(chunk[0] + i + 1 for i in range(chunk[1])) if chunk else 0)
+        flops = (2 * N * (d * cfg.q_lora_rank + cfg.q_lora_rank * H * (nope + R)
+                          + d * (L + R) + H * nope * L + H * L * vh + H * vh * d)
+                 + 2 * H * keys * (L + R + L))
+        bound, by = bound_of(nbytes, flops, "bfloat16")
+        ms, how, parts, records = device_ms(torch, call, reps=10)
+        tabs = view.seg_tables().long()
+        ckr = torch.cat([pool["ckv"][tabs], pool["krope"][tabs]], dim=-1).view(
+            tabs.shape[0], K, L + R)
+        seg = torch.searchsorted(view.cu_q_lens[1:].long(), torch.arange(N, device="cuda"),
+                                 right=True).clamp_(max=tabs.shape[0] - 1)
+
+        def row_copies():
+            for k0 in range(0, K, tile):
+                _ = ckr[seg, k0:k0 + tile]
+
+        row_copy_ms = device_ms(torch, row_copies, reps=10)[0]
+        del ckr
+        rec = dict(phase="mla_layer", case=name, rows=N, contexts=ctx, heads=H, kv_lora_rank=L,
+                   rope=R, dtype="bfloat16", key_tile=tile, key_tiles=-(-K // tile),
+                   keys_attended=keys, max_abs_err=float((y.float() - plain).abs().max()),
+                   rel_rms_err=float((y.float() - plain).norm() / plain.norm()),
+                   tol_used=used, control_tol_used=control,
+                   fault_tol_used={"no_rescale": fault_used},
+                   finite=bool(torch.isfinite(y).all()), ms=ms, timing=how,
+                   kernels_a_call=sum(records.values()) / 10 if records else None,
+                   top_kernels=dict(sorted(parts.items(), key=lambda kv: -kv[1])[:6]),
+                   row_copy_ms=row_copy_ms, row_copy_bytes=N * K * (L + R) * 2,
+                   host_us=host_us(torch, call, 10), bound_ms=bound, bound_by=by,
+                   byte_bound_ms=nbytes / H100_BYTES_PER_S * 1e3, bytes=nbytes,
+                   weight_bytes=weight_bytes, latent_bytes=latent, flops=flops,
+                   peak_extra_gib=peak_gib)
+        rec["ok"] = (rec["finite"] and used <= 1 and peak_gib <= MLA_PEAK_GIB
+                     and (fault_used is None or fault_used >= FAULT_MARGIN)
+                     and (name == "decode8" or fault_used is not None))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"mla_layer {name}: {rec}")
+        recs[name] = rec
+        del x, pool, plain, y
     del p
     torch.cuda.empty_cache()
     return recs
@@ -2138,6 +2377,8 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
     else:
         default, kernel = "serve_dense", "paged_attention"
     phase = phase or default
+    if cfg.mla:
+        kernel = None  # MLA's latent attention is plain PyTorch: no kernel runs
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2158,7 +2399,7 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
         segments += len(plan.prefill_segments)
     run_s = time.perf_counter() - t_run
     counts, plain_cuda = read_counts()
-    launches = counts[kernel]
+    launches = counts[kernel] if kernel else 0
     reqs = [eng.scheduler.requests[r] for r in range(c["requests"])]
     done = all(r.state is State.DONE and len(r.output) == c["max_new"] for r in reqs)
     pre = [i for i, f in enumerate(has_prefill) if f]
@@ -2192,12 +2433,15 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
         all_completed=done, preemptions=eng.scheduler.stats.preemptions,
         outputs=[r.output for r in reqs], nvidia_smi=smi)
     # the attention kernels launch once per layer and step; B5 once per
-    # layer and prefill segment (the decode call is plain PyTorch)
-    expect = cfg.n_layers * (segments if eng.two_call else eng.steps_run)
+    # layer and prefill segment (the decode call is plain PyTorch); MLA
+    # launches none of them
+    expect = 0 if kernel is None else cfg.n_layers * (segments if eng.two_call else
+                                                      eng.steps_run)
     if extra is not None:
         rec.update(extra(eng, step_ms))
     rec["ok"] = (done and launches == expect and plain_cuda == 0 and eng.nonfinite == 0
-                 and rec.get("a5_ok", True))
+                 and rec.get("a5_ok", True)
+                 and (kernel is not None or not any(counts.values())))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"{rec['phase']}: {rec}")
@@ -2247,7 +2491,7 @@ def profile_serve(torch, model, params, phase, kernel):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(max_steps=200)
         torch.cuda.synchronize()
-    groups, kernels = {kernel: 0.0, "gemm": 0.0, "other": 0.0}, {}
+    groups, kernels = {kernel or "no_kernel": 0.0, "gemm": 0.0, "other": 0.0}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops: their device time is their kernels'
@@ -2256,7 +2500,7 @@ def profile_serve(torch, model, params, phase, kernel):
             continue
         kernels[evt.key] = kernels.get(evt.key, 0.0) + ms
         low = evt.key.lower()
-        group = (kernel if kernel in low else
+        group = (kernel if kernel and kernel in low else
                  "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet"))
                  else "other")
         groups[group] += ms
@@ -3128,6 +3372,7 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     moe_layer(torch)
+    mla_layer(torch)
     for phase, arch, layers, profile in ARCH_SERVES:
         model, params, setup = full_model(torch, arch, layers)
         arch_runs.append(serve(torch, smi, model, params, setup, phase=phase, profile=profile))
@@ -3175,6 +3420,9 @@ def main() -> int:
             # before it ran
             launches_by_path={r["phase"]: r["launches_by_kernel"][kname] for r in runs
                               if r["launches_by_kernel"].get(kname)},
+            # the MLA paths, which launch no kernel: 0 each
+            launches_on_mla_paths={r["phase"]: r["launches_by_kernel"][kname] for r in runs
+                                   if r.get("kernel", "") is None},
             main_path_cases=[dict(case=n, ms=parity[n]["kernel_ms"],
                                   plain_ms=parity[n]["plain_ms"],
                                   bound_ms=parity[n]["bound_ms"],
@@ -3187,7 +3435,8 @@ def main() -> int:
             tol_used_all_cases=max(r["tol_used"] for r in parity.values()
                                    if r["kernel"] == kname)))
     emit({"kernels": lines})
-    if not all(k["launches"] > 0 and k["plain_cuda_calls"] == 0 for k in lines) \
+    if not all(k["launches"] > 0 and k["plain_cuda_calls"] == 0
+               and not any(k["launches_on_mla_paths"].values()) for k in lines) \
             or any(r["plain_cuda_calls"] for r in runs):
         raise AssertionError(f"a kernel of a main path did not launch: {lines}")
     print(smi, flush=True)

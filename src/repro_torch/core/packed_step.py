@@ -22,6 +22,15 @@ rows. Two realizations, one view class each:
     tile. Keys past a row's position may hold an earlier request's tokens;
     the kernel never reads them.
 
+MLA (``_packed_mla``) writes each row's latent (``ckv``, ``krope``) the
+same way and attends in the latent space through the view's
+``attend_latent``: plain PyTorch, no kernel, in key tiles with an online
+softmax (``attention.latent_attention``). Where JAX gathers every row's
+whole latent context (``cc[tables]`` per row, or ``cc[slots]``), the paged
+view gathers each segment's context once and each row reads one key tile
+of it at a time; the dense view reads its slot's rows a key tile at a
+time. A step never holds more than one tile's scores.
+
 Where JAX rebuilt the cache (``.at[...].set``), the port writes it in place
 (``index_put_``): ``packed_step`` mutates the cache it is given and returns
 that same list. A Python loop over layers replaces ``lax.scan``.
@@ -35,6 +44,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.paged_attention import mixed_paged_attention, paged_attention
+from repro_torch.models import attention
 from repro_torch.models.layers import dense, ffn, rms_norm, rope_angles, rotate
 from repro_torch.models.model import Model
 from repro_torch.models.moe import moe_apply
@@ -94,6 +104,28 @@ class PagedView:
                                      self.seg_tables(), window=window, softcap=softcap,
                                      tiles=self.tiles)
 
+    def attend_latent(self, q_eff, q_rope, positions, ckv_pool, krope_pool, *, scale):
+        """MLA: each row's absorbed query q_eff (N, H, L) and q_rope (N, H,
+        rope) over its segment's latent pages, up to its own position. Each
+        segment's ``nb`` pages are gathered once; row r then reads its
+        segment's keys one tile at a time. Padding rows (past the last
+        segment's end) read the last segment's keys; their outputs are
+        ignored. Returns o_lat (N, H, L) in q's dtype."""
+        N = q_eff.shape[0]
+        tabs = self.seg_tables().long()
+        n_seg, nb = tabs.shape
+        K = nb * self.page_size
+        # each segment's latent and RoPE keys side by side, once
+        ckr = torch.cat([ckv_pool[tabs], krope_pool[tabs]], dim=-1).view(n_seg, K, -1)
+        rows = torch.arange(N, device=q_eff.device)
+        seg = torch.searchsorted(self.cu_q_lens[1:].long(), rows, right=True).clamp_(
+            max=n_seg - 1)
+        dt = q_eff.dtype
+        tile = attention.mla_key_tile(N, q_eff.shape[1], K, ckr.shape[-1], ckr.element_size())
+        return attention.latent_attention(
+            q_eff[:, None], q_rope[:, None], positions.view(N, 1),
+            lambda k0, k1: ckr[seg, k0:k1].to(dt), K, scale=scale, tile=tile)[:, 0]
+
 
 @dataclasses.dataclass
 class DenseView:
@@ -123,6 +155,21 @@ class DenseView:
         return paged_attention(q, k_cache, v_cache, self._lengths, self._tables, window=window,
                                softcap=softcap, tiles=self.tiles)
 
+    def attend_latent(self, q_eff, q_rope, positions, ckv_cache, krope_cache, *, scale):
+        """MLA: each row's absorbed query q_eff (N, H, L) and q_rope (N, H,
+        rope) over its slot's latent row, up to its own position, read one
+        key tile at a time. Returns o_lat (N, H, L) in q's dtype."""
+        N = q_eff.shape[0]
+        S = ckv_cache.shape[1]
+        slots, dt = self.slots.long(), q_eff.dtype
+        tile = attention.mla_key_tile(N, q_eff.shape[1], S,
+                                      ckv_cache.shape[-1] + krope_cache.shape[-1],
+                                      ckv_cache.element_size())
+        return attention.latent_attention(
+            q_eff[:, None], q_rope[:, None], positions.view(N, 1),
+            lambda k0, k1: torch.cat([ckv_cache[slots, k0:k1], krope_cache[slots, k0:k1]],
+                                     dim=-1).to(dt), S, scale=scale, tile=tile)[:, 0]
+
 
 def _packed_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, write_index):
     N = x.shape[0]
@@ -144,9 +191,31 @@ def _packed_gqa(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, wr
     return dense(p["wo"], o.reshape(N, cfg.n_heads * hd).to(x.dtype))
 
 
-def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, angles, cache, view, write_index):
+def _packed_mla(p, cfg: ModelConfig, x, positions, angles, cache, view, write_index):
+    """JAX's ``_packed_mla``: every row's latent is written first, then each
+    row attends in the latent space (absorbed: q_nope through the keys' half
+    of ``kv_up``, the output through its values' half)."""
+    N = x.shape[0]
+    H, L = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope, ckv, krope = attention.mla_qkv_rope(p, cfg, x, angles)
+    view.scatter(cache["ckv"], write_index, ckv)
+    view.scatter(cache["krope"], write_index, krope)
+    w_up = p["kv_up"]["w"].view(L, H, nope + vh).to(x.dtype)
+    q_eff = torch.einsum("nhp,lhp->nhl", q_nope, w_up[..., :nope])
+    o_lat = view.attend_latent(q_eff, q_rope, positions, cache["ckv"], cache["krope"],
+                               scale=1.0 / ((nope + rope) ** 0.5))
+    o = torch.einsum("nhl,lhv->nhv", o_lat, w_up[..., nope:]).reshape(N, H * vh)
+    return dense(p["wo"], o)
+
+
+def _packed_layer(p, cfg: ModelConfig, spec: LayerSpec, x, positions, angles, cache, view,
+                  write_index):
     hn = rms_norm(p["norm1"], x, cfg.norm_eps)
-    y = _packed_gqa(p["mixer"], cfg, spec, hn, angles, cache, view, write_index)
+    if cfg.mla:
+        y = _packed_mla(p["mixer"], cfg, hn, positions, angles, cache, view, write_index)
+    else:
+        y = _packed_gqa(p["mixer"], cfg, spec, hn, angles, cache, view, write_index)
     if cfg.post_norm:
         y = rms_norm(p["post_norm1"], y, cfg.norm_eps)
     x = x + y
@@ -185,5 +254,5 @@ def packed_step(model: Model, params, cache, tokens, slots, positions,
     write_index = view.write_index(slots, positions)
     angles = rope_angles(positions, model.inv_freq)
     for p, spec, layer_cache in zip(params["layers"], cfg.layer_specs, cache):
-        x = _packed_layer(p, cfg, spec, x, angles, layer_cache, view, write_index)
+        x = _packed_layer(p, cfg, spec, x, positions, angles, layer_cache, view, write_index)
     return model._head(params, rms_norm(params["final_norm"], x, cfg.norm_eps)), cache

@@ -6,7 +6,8 @@
 Weights are random, drawn on the device from seed 0. The physical KV page
 pool is sized from the device memory left free once the weights are resident
 (``torch.cuda.mem_get_info``, less ``ACTIVATION_RESERVE`` for activations),
-divided by one page's full-stack KV bytes in the pool dtype, and capped at the
+divided by one page's full-stack KV bytes in the pool dtype
+(``kv_block_bytes``: K and V, or MLA's latent), and capped at the
 dense-equivalent layout (``max_batch * max_len`` tokens). On the CPU the cap
 is the size. ``--num-kv-blocks`` overrides both. ``--attn-kernel dense``
 serves from a dense ``(max_batch + 1, max_len)`` slot cache instead and
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
 import signal
 import sys
 
@@ -35,6 +37,7 @@ from repro_torch.configs import get_config, reduce_config
 from repro_torch.configs.reduced import dropless
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.models import build_model
+from repro_torch.models.model import page_leaves
 from repro_torch.obs.perfetto import dump_json, export_chrome
 from repro_torch.obs.registry import MetricsRegistry
 from repro_torch.obs.trace import TraceRecorder
@@ -59,6 +62,15 @@ def depth_cut(cfg, layers: int):
     return dataclasses.replace(cfg, n_layers=layers, layer_specs=cfg.layer_specs[:layers])
 
 
+def kv_block_bytes(cfg, dtype: torch.dtype, kv_block: int) -> int:
+    """One block's bytes over every attention layer, as ``init_page_pool``
+    allocates it in ``dtype``: K and V of (block, KV, d) for GQA, the latent
+    ckv (block, kv_lora_rank) and krope (block, qk_rope_head_dim) for MLA."""
+    elem = torch.empty((), dtype=dtype).element_size()
+    per_layer = sum(math.prod(shape) for shape in page_leaves(cfg, kv_block).values())
+    return per_layer * elem * cfg.n_attn_layers
+
+
 def sized_kv_pool(cfg, device: torch.device, dtype: torch.dtype, max_batch: int,
                   max_len: int, kv_block: int):
     """(pool_blocks, basis): free device memory after the weights, less
@@ -72,9 +84,7 @@ def sized_kv_pool(cfg, device: torch.device, dtype: torch.dtype, max_batch: int,
     if device.type != "cuda":
         return dense_equiv, "dense"
     free, _total = torch.cuda.mem_get_info(device)
-    elem = torch.empty((), dtype=dtype).element_size()
-    block_bytes = kv_block * 2 * cfg.n_kv_heads * cfg.head_dim * elem * cfg.n_attn_layers
-    budget = max(0, free - ACTIVATION_RESERVE) // block_bytes
+    budget = max(0, free - ACTIVATION_RESERVE) // kv_block_bytes(cfg, dtype, kv_block)
     if budget < floor:
         return floor, "floor"
     if budget < dense_equiv:

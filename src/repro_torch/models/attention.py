@@ -1,7 +1,7 @@
-"""GQA attention over a dense KV cache: the serial execution path.
+"""GQA and MLA attention over a dense cache: the serial execution path.
 
-The PyTorch counterpart of the GQA part of the JAX package's
-``models/attention.py``. One function, two entry modes:
+The PyTorch counterpart of the JAX package's ``models/attention.py``. One
+function, two entry modes:
 
   * ``cache=None``: full-sequence causal self-attention (one-shot forward);
   * ``cache`` given: write this call's K/V into the ``(B, max_len, KV, d)``
@@ -21,13 +21,27 @@ function, which on CPU tensors runs its plain version:
   * ``T > 1`` at a nonzero index (chunked prefill): B1, each batch row's
     cache one page of ``max_len`` tokens, row ``j`` at ``index + j``.
 
-Not in this module yet: MLA, cross-attention and the sequence-parallel
-decode (ROADMAP.md A8).
+MLA (DeepSeek-V2's multi-head latent attention) has no kernel in either
+package: ``_mla_apply`` is plain PyTorch, on JAX's branches and under JAX's
+rule for choosing them:
+
+  * no cache, ``T * T <= FLASH_THRESHOLD``: direct attention over per-head
+    K/V expanded from the call's latent;
+  * a cache, ``T == 1`` or ``T * S <= FLASH_THRESHOLD``: absorbed attention
+    in the latent space over the cache's ``{"ckv", "krope"}`` rows
+    (``latent_attention``, key-tiled with an online softmax, which the packed
+    step shares);
+  * otherwise (a long prompt, cached or not): expanded attention in key
+    tiles (``expanded_attention``), each tile's K/V expanded from its latent,
+    the counterpart of JAX's ``flash_sdpa`` with ``kv_expand``.
+
+Not in this module yet: cross-attention and the sequence-parallel decode
+(ROADMAP.md A8).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -35,14 +49,69 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import q_tiles
-from repro_torch.models.layers import dense, rms_norm, rotate
+from repro_torch.models.layers import dense, dense_init, rms_norm, rms_norm_init, rotate
 
 Index = Union[int, torch.Tensor]  # a uniform offset, or (B,) per-row offsets
+NEG_INF = -2.0e38
+FLASH_THRESHOLD = 1 << 22  # T*S above this takes MLA's expanded, key-tiled branch
+# the working set of one key tile of ``latent_attention`` (the tile's latent
+# gathered for every query group, and its fp32 scores and probabilities)
+MLA_TILE_BYTES = 384 * 2**20
+# query and key block of ``expanded_attention``: one key block's K and V
+# for all heads, (B, 512, H, nope + vh), is what the expanded branch holds
+EXPANDED_BLOCK = 512
+
+
+def attn_init(cfg: ModelConfig, *, generator, dtype, device) -> dict:
+    """One attention layer's parameters: GQA's ``wq``/``wk``/``wv``/``wo``
+    (biases, q/k norms where the config has them) or MLA's."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    if cfg.mla:
+        return _mla_init(cfg, **kw)
+    d, hd = cfg.d_model, cfg.head_dim
+    p = {
+        "wq": dense_init(d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw),
+        "wk": dense_init(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw),
+        "wv": dense_init(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw),
+        "wo": dense_init(cfg.n_heads * hd, d, **kw),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = rms_norm_init(hd, dtype=dtype, device=device)
+        p["k_norm"] = rms_norm_init(hd, dtype=dtype, device=device)
+    return p
+
+
+def _mla_init(cfg: ModelConfig, *, generator, dtype, device) -> dict:
+    """JAX's ``_mla_init`` leaves: the query's low-rank down and up
+    projections around a norm, the latent's down projection (``kv_lora_rank``
+    latent dims, then the shared RoPE key), its norm and its up projection
+    to every head's no-RoPE key and value (head-interleaved columns), and
+    the output projection."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    d, H = cfg.d_model, cfg.n_heads
+    L, R = cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    nope, vh = cfg.qk_nope_head_dim, cfg.v_head_dim
+    return {
+        "q_down": dense_init(d, cfg.q_lora_rank, **kw),
+        "q_norm": rms_norm_init(cfg.q_lora_rank, dtype=dtype, device=device),
+        "q_up": dense_init(cfg.q_lora_rank, H * (nope + R), **kw),
+        "kv_down": dense_init(d, L + R, **kw),
+        "kv_norm": rms_norm_init(L, dtype=dtype, device=device),
+        "kv_up": dense_init(L, H * (nope + vh), **kw),
+        "wo": dense_init(H * vh, d, **kw),
+    }
 
 
 def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, dtype: torch.dtype,
                   device) -> dict:
-    """Zeroed per-layer KV cache: k and v of (batch, max_len, KV, d)."""
+    """Zeroed per-layer cache: k and v of (batch, max_len, KV, d), or MLA's
+    latent, ckv (batch, max_len, kv_lora_rank) and krope (batch, max_len,
+    qk_rope_head_dim)."""
+    if cfg.mla:
+        return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                                   device=device),
+                "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim), dtype=dtype,
+                                     device=device)}
     shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -65,6 +134,14 @@ def cache_write(buf: torch.Tensor, new: torch.Tensor, index: Index) -> torch.Ten
     cols = index.long()[:, None] + torch.arange(T, device=buf.device)[None, :]
     buf.index_put_((rows, cols), new)
     return buf
+
+
+def positions_from_index(index: Index, B: int, T: int, device) -> torch.Tensor:
+    """(B, T) int32 positions of T tokens written at ``index``."""
+    steps = torch.arange(T, dtype=torch.int32, device=device)
+    if isinstance(index, int):
+        return (index + steps)[None, :].expand(B, T)
+    return index.to(device=device, dtype=torch.int32)[:, None] + steps[None, :]
 
 
 @dataclasses.dataclass
@@ -125,6 +202,8 @@ def attn_apply(params, cfg: ModelConfig, spec: LayerSpec, x, angles, *, cache=No
     (``layers.rope_angles``, computed once for all layers); with a cache,
     ``call`` says where the tokens go. Returns (y, cache): the given cache,
     written in place, or None."""
+    if cfg.mla:
+        return _mla_apply(params, cfg, x, angles, cache=cache, call=call)
     B, T, _ = x.shape
     hd = cfg.head_dim
     q = dense(params["wq"], x).view(B, T, cfg.n_heads, hd)
@@ -146,3 +225,170 @@ def attn_apply(params, cfg: ModelConfig, spec: LayerSpec, x, angles, *, cache=No
         out = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), window, cap, call)
     y = dense(params["wo"], out.reshape(B, T, cfg.n_heads * hd))
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: direct (short, no cache), absorbed (cached), expanded (long)
+# ---------------------------------------------------------------------------
+
+
+def mla_qkv_rope(params, cfg: ModelConfig, x, angles):
+    """JAX's ``_mla_qkv_rope`` over x (..., d_model) with ``angles`` from
+    ``rope_angles`` of its positions (RoPE over ``qk_rope_head_dim``):
+    q_nope (..., H, nope), q_rope (..., H, rope) rotated, the normed latent
+    ckv (..., kv_lora_rank) and the rotated shared key krope (..., rope)."""
+    H, L = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    lead = x.shape[:-1]
+    ql = rms_norm(params["q_norm"], dense(params["q_down"], x), cfg.norm_eps)
+    q = dense(params["q_up"], ql).view(*lead, H, nope + rope)
+    q_nope, q_rope = q[..., :nope], rotate(q[..., nope:], angles)
+    c = dense(params["kv_down"], x)
+    ckv = rms_norm(params["kv_norm"], c[..., :L], cfg.norm_eps)
+    krope = rotate(c[..., L:].unsqueeze(-2), angles).squeeze(-2)
+    return q_nope, q_rope, ckv, krope
+
+
+def mla_key_tile(groups: int, queries: int, n_keys: int, width: int, itemsize: int) -> int:
+    """Keys per tile of ``latent_attention``: the largest power of two
+    whose working set (``groups`` copies of the tile's latent, ``width``
+    elements of ``itemsize`` bytes a key, and the fp32 scores and
+    probabilities of ``queries`` query heads a group) fits
+    ``MLA_TILE_BYTES``, at least 16 and at most ``n_keys``. It depends
+    only on shapes, never on data."""
+    per_key = groups * (width * itemsize + queries * 4 * 3)
+    tile = 16
+    while tile * 2 * per_key <= MLA_TILE_BYTES:
+        tile *= 2
+    return min(tile, n_keys)
+
+
+def latent_attention(q_eff, q_rope, q_pos, keys: Callable, n_keys: int, *, scale: float,
+                     tile: int):
+    """MLA's absorbed attention in the latent space, in key tiles with an
+    online softmax. ``q_eff`` (G, M, H, L) are the queries absorbed into the
+    latent (``q_nope @ w_uk``), ``q_rope`` (G, M, H, rope), ``q_pos`` (G, M)
+    their positions; ``keys(k0, k1)`` gives every group's keys at positions
+    k0..k1-1, (G, k1-k0, L + rope) in q's dtype: the latent ckv, then the
+    RoPE key. Query (g, m) attends the keys at positions <= ``q_pos[g, m]``;
+    every query attends key 0, so the first tile leaves each running max
+    finite and a dead key's exp is exactly 0 after it. A score is one
+    product over [q_eff | q_rope] and [ckv | krope] drawn in q's dtype and
+    scaled in fp32 (JAX draws the two halves' products in q's dtype and
+    adds them); probabilities enter the value product in q's dtype; the
+    running max, sum and output stay fp32. Returns o_lat (G, M, H, L) in
+    q's dtype. No host sync: every shape depends on (G, M, n_keys, tile)
+    alone."""
+    G, M, H, L = q_eff.shape
+    dt, dev = q_eff.dtype, q_eff.device
+    q = torch.cat([q_eff, q_rope], dim=-1).reshape(G, M * H, -1)
+    limit = q_pos.reshape(G, M, 1, 1)
+    m = torch.full((G, M, H), NEG_INF, dtype=torch.float32, device=dev)
+    l_sum = torch.zeros((G, M, H), dtype=torch.float32, device=dev)
+    acc = torch.zeros((G, M * H, L), dtype=torch.float32, device=dev)
+    for k0 in range(0, n_keys, tile):
+        k1 = min(k0 + tile, n_keys)
+        kv = keys(k0, k1)
+        s = torch.bmm(q, kv.transpose(1, 2)).float().mul_(scale).view(G, M, H, k1 - k0)
+        s.masked_fill_(torch.arange(k0, k1, device=dev) > limit, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s.sub_(m_new[..., None]))
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + p.sum(dim=-1)
+        acc.mul_(alpha.view(G, M * H, 1))
+        acc.add_(torch.bmm(p.view(G, M * H, k1 - k0).to(dt), kv[..., :L]))
+        m = m_new
+    return (acc / l_sum.view(G, M * H, 1)).to(dt).view(G, M, H, L)
+
+
+def expanded_attention(q, ckv, krope, q_pos, w_up, nope: int, *, scale: float):
+    """MLA's expanded branch, the counterpart of JAX's ``flash_sdpa`` with
+    ``kv_expand``: q (B, T, H, nope + rope) over the latent keys ckv (B, S,
+    L) and krope (B, S, rope) at positions 0..S-1, causal by ``q_pos`` (B,
+    T). Query blocks of ``EXPANDED_BLOCK``, and within each, key blocks of
+    as many keys whose per-head K and V are expanded from the latent
+    (``w_up`` (L, H, nope + vh)) and dropped after use, so no K for all
+    heads beyond one key block is ever held. fp32 running softmax; returns
+    (B, T, H, vh) in q's dtype."""
+    B, T, H, _ = q.shape
+    S, rope = ckv.shape[1], krope.shape[-1]
+    dev = q.device
+    outs = []
+    blk = EXPANDED_BLOCK
+    for q0 in range(0, T, blk):
+        qb = q[:, q0:q0 + blk]
+        bq = qb.shape[1]
+        limit = q_pos[:, None, q0:q0 + blk, None]  # (B, 1, bq, 1)
+        m = torch.full((B, H, bq), NEG_INF, dtype=torch.float32, device=dev)
+        l_sum = torch.zeros((B, H, bq), dtype=torch.float32, device=dev)
+        acc = None
+        for k0 in range(0, S, blk):
+            kv = torch.einsum("bsl,lhx->bshx", ckv[:, k0:k0 + blk], w_up)
+            bk = kv.shape[1]
+            k = torch.cat([kv[..., :nope],
+                           krope[:, k0:k0 + bk, None, :].expand(B, bk, H, rope)], dim=-1)
+            s = torch.einsum("bthd,bshd->bhts", qb, k).float() * scale
+            ok = torch.arange(k0, k0 + bk, device=dev) <= limit  # (B, 1, bq, bk)
+            s = s.masked_fill(~ok, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None]).masked_fill(~ok, 0.0)
+            alpha = torch.exp(m - m_new)
+            l_sum = alpha * l_sum + p.sum(dim=-1)
+            pv = torch.einsum("bhts,bshv->bhtv", p.to(kv.dtype), kv[..., nope:]).float()
+            acc = pv if acc is None else acc * alpha[..., None] + pv
+            m = m_new
+        outs.append((acc / l_sum.clamp_min(1e-37)[..., None]).to(q.dtype).transpose(1, 2))
+    return torch.cat(outs, dim=1)
+
+
+def _direct_attention(q, k, v, scale: float):
+    """JAX's ``_sdpa`` at one query head a KV head, causal over the call's
+    own T keys: fp32 scores and softmax, probabilities in v's dtype."""
+    T = q.shape[1]
+    s = torch.einsum("bthd,bshd->bhts", q, k).float() * scale
+    causal = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~causal, NEG_INF)
+    probs = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhts,bshd->bthd", probs, v)
+
+
+def _mla_apply(params, cfg: ModelConfig, x, angles, *, cache=None,
+               call: Optional[CacheCall] = None):
+    """JAX's ``_mla_apply``: x (B, T, d_model) -> (y, cache), on the branch
+    JAX takes (see the module docstring). With a cache, this call's latent
+    is written at ``call.index`` first and attended from the cache's copy in
+    x's dtype, as JAX does."""
+    B, T, _ = x.shape
+    H, L = cfg.n_heads, cfg.kv_lora_rank
+    nope, rope, vh = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    scale = 1.0 / ((nope + rope) ** 0.5)
+    q_nope, q_rope, ckv, krope = mla_qkv_rope(params, cfg, x, angles)
+    w_up = params["kv_up"]["w"].view(L, H, nope + vh).to(x.dtype)
+
+    if cache is None:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        if T * T > FLASH_THRESHOLD:
+            q_pos = positions_from_index(0, B, T, x.device)
+            out = expanded_attention(q, ckv, krope, q_pos, w_up, nope, scale=scale)
+        else:
+            kv = dense(params["kv_up"], ckv).view(B, T, H, nope + vh)
+            k = torch.cat([kv[..., :nope], krope[:, :, None, :].expand(B, T, H, rope)], dim=-1)
+            out = _direct_attention(q, k, kv[..., nope:], scale)
+        return dense(params["wo"], out.reshape(B, T, H * vh)), None
+
+    cache_write(cache["ckv"], ckv, call.index)
+    cache_write(cache["krope"], krope, call.index)
+    c, kr = cache["ckv"].to(x.dtype), cache["krope"].to(x.dtype)
+    S = c.shape[1]
+    q_pos = positions_from_index(call.index, B, T, x.device)
+    if T > 1 and T * S > FLASH_THRESHOLD:
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        out = expanded_attention(q, c, kr, q_pos, w_up, nope, scale=scale)
+    else:
+        q_eff = torch.einsum("bthn,lhn->bthl", q_nope, w_up[..., :nope])
+        ckr = torch.cat([c, kr], dim=-1)
+        tile = mla_key_tile(B, T * H, S, L + rope, c.element_size())
+        o_lat = latent_attention(q_eff, q_rope, q_pos, lambda k0, k1: ckr[:, k0:k1], S,
+                                 scale=scale, tile=tile)
+        out = torch.einsum("bthl,lhv->bthv", o_lat, w_up[..., nope:])
+    return dense(params["wo"], out.reshape(B, T, H * vh)), cache

@@ -2,16 +2,17 @@
 and the KV page pool.
 
 The PyTorch counterpart of the JAX package's ``Model`` for the archs the
-port serves so far (GQA attention and Mamba2 mixers; dense FFNs, MoE FFNs or
-none; no MLA/Mamba1/enc-dec). The parameter tree follows ``Model.init`` /
+port serves so far (GQA, MLA and Mamba2 mixers; dense FFNs, MoE FFNs or
+none; no Mamba1/enc-dec). The parameter tree follows ``Model.init`` /
 ``stack.layer_init`` / ``attention.attn_init`` / ``mamba.mamba2_init`` /
 ``moe.moe_init`` key for key, except that layers are a Python list in layer
 order where JAX stacks them over scan periods.
 
 The serial path is JAX's: ``forward`` (one-shot causal), ``init_cache``,
 ``prefill`` and ``decode_step`` over per-layer caches (a dense ``(B,
-max_len, KV, d)`` KV cache for attention, the conv and SSM state for
-Mamba2), which they update in place and return. ``index`` is an int (one
+max_len, KV, d)`` KV cache for GQA attention, MLA's ``(B, max_len, .)``
+latent, the conv and SSM state for Mamba2), which they update in place and
+return. ``index`` is an int (one
 offset for every row) or a ``(B,)`` tensor (one per row). ``loss`` waits for
 training.
 
@@ -29,9 +30,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import stack
-from repro_torch.models.attention import Index, cache_call
+from repro_torch.models.attention import (
+    CacheCall,
+    Index,
+    attn_init,
+    cache_call,
+    positions_from_index,
+)
 from repro_torch.models.layers import (
-    dense_init,
     ffn_init,
     rms_norm,
     rms_norm_init,
@@ -53,20 +59,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if any(s.mixer not in ("attn", "mamba2") for s in cfg.layer_specs):
         raise NotImplementedError(
             f"{cfg.name}: Mamba1 mixers (jamba-v0.1-52b) are not ported yet (ROADMAP.md A9)")
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP.md, deepseek-v2 slice)")
     if cfg.learned_pos or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: learned positions / frontends are not ported yet")
-
-
-def _positions_from_index(index: Index, B: int, T: int, device) -> torch.Tensor:
-    """(B, T) int32 positions of T tokens written at ``index``."""
-    steps = torch.arange(T, dtype=torch.int32, device=device)
-    if isinstance(index, int):
-        return (index + steps)[None, :].expand(B, T)
-    return index.to(torch.int32)[:, None] + steps[None, :]
 
 
 def _as_index(index: Index) -> Index:
@@ -76,25 +71,21 @@ def _as_index(index: Index) -> Index:
     return index
 
 
-def _attn_init(cfg: ModelConfig, *, generator, dtype, device):
-    kw = dict(generator=generator, dtype=dtype, device=device)
-    d, hd = cfg.d_model, cfg.head_dim
-    mixer = {
-        "wq": dense_init(d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw),
-        "wk": dense_init(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw),
-        "wv": dense_init(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw),
-        "wo": dense_init(cfg.n_heads * hd, d, **kw),
-    }
-    if cfg.qk_norm:
-        mixer["q_norm"] = rms_norm_init(hd, dtype=dtype, device=device)
-        mixer["k_norm"] = rms_norm_init(hd, dtype=dtype, device=device)
-    return mixer
+def page_leaves(cfg: ModelConfig, page_size: int) -> dict:
+    """Each attention layer's page-pool leaves, name -> one page's shape:
+    K and V of ``(page, KV, d)``, or MLA's latent, ckv ``(page,
+    kv_lora_rank)`` and krope ``(page, qk_rope_head_dim)``."""
+    if cfg.mla:
+        return {"ckv": (page_size, cfg.kv_lora_rank),
+                "krope": (page_size, cfg.qk_rope_head_dim)}
+    kv = (page_size, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": kv, "v": kv}
 
 
 def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
     kw = dict(generator=generator, dtype=dtype, device=device)
     d = cfg.d_model
-    init = _attn_init if spec.mixer == "attn" else mamba2_init
+    init = attn_init if spec.mixer == "attn" else mamba2_init
     p = {"norm1": rms_norm_init(d, dtype=dtype, device=device), "mixer": init(cfg, **kw)}
     if cfg.post_norm:
         p["post_norm1"] = rms_norm_init(d, dtype=dtype, device=device)
@@ -117,9 +108,16 @@ class Model:
         check_supported(self.cfg)
         self.device = torch.device(self.device)
         cfg = self.cfg
-        # attention-free configs (n_heads = head_dim = 0) build no RoPE
-        self.inv_freq = (rope_freqs(cfg.head_dim, cfg.rotary_pct, cfg.rope_theta,
-                                    device=self.device) if cfg.n_attn_layers else None)
+        # MLA rotates only its qk_rope_head_dim dims; attention-free configs
+        # (n_heads = head_dim = 0) build no RoPE
+        if cfg.mla:
+            self.inv_freq = rope_freqs(cfg.qk_rope_head_dim, 1.0, cfg.rope_theta,
+                                       device=self.device)
+        elif cfg.n_attn_layers:
+            self.inv_freq = rope_freqs(cfg.head_dim, cfg.rotary_pct, cfg.rope_theta,
+                                       device=self.device)
+        else:
+            self.inv_freq = None
 
     def init(self, generator: torch.Generator):
         """Seeded random parameters on the model's device and dtype:
@@ -156,14 +154,15 @@ class Model:
         the port drops it until ``loss`` is ported with training.)"""
         tokens = batch["tokens"]
         B, S = tokens.shape
-        positions = _positions_from_index(0, B, S, self.device)
+        positions = positions_from_index(0, B, S, self.device)
         h, _ = stack.stack_apply(params["layers"], self.cfg, self._embed(params, tokens),
                                  rope_angles(positions, self.inv_freq))
         return self._head(params, rms_norm(params["final_norm"], h, self.cfg.norm_eps))
 
     def init_cache(self, batch: int, max_len: int, dtype: Optional[torch.dtype] = None):
         """Zeroed per-layer caches: a dense KV cache ``{"k", "v"}`` of (batch,
-        max_len, KV, d) in ``dtype`` (default: the model's) per attention
+        max_len, KV, d) (MLA: the latent ``{"ckv", "krope"}`` of (batch,
+        max_len, .)) in ``dtype`` (default: the model's) per attention
         layer, an fp32 ``{"conv", "ssm"}`` state per Mamba2 layer."""
         return stack.stack_cache_init(self.cfg, batch, max_len,
                                       dtype=dtype if dtype is not None else self.dtype,
@@ -175,11 +174,16 @@ class Model:
         B, T = tokens.shape
         index = _as_index(index)
         cfg = self.cfg
-        positions = _positions_from_index(index, B, T, self.device)
+        positions = positions_from_index(index, B, T, self.device)
         # what every layer shares is built once: RoPE angles and the
-        # attention's metadata (none without attention layers)
-        call = (cache_call(index, B, T, cfg.n_heads // cfg.n_kv_heads, self.device)
-                if cfg.n_attn_layers else None)
+        # attention's metadata (none without attention layers; MLA's
+        # attention needs only the index)
+        if cfg.mla:
+            call = CacheCall(index)
+        elif cfg.n_attn_layers:
+            call = cache_call(index, B, T, cfg.n_heads // cfg.n_kv_heads, self.device)
+        else:
+            call = None
         h, cache = stack.stack_apply(params["layers"], cfg, self._embed(params, tokens),
                                      rope_angles(positions, self.inv_freq), caches=cache,
                                      call=call)
@@ -201,17 +205,17 @@ class Model:
     def init_page_pool(self, num_pages: int, page_size: int,
                        dtype: Optional[torch.dtype] = None):
         """Physical KV page pool: per layer, K and V pools of shape
-        ``(num_pages + 1, page_size, n_kv_heads, head_dim)``. The extra page
-        is the scratch page that dead block-table entries and padding rows
-        point at. Zero-filled, like the reference's ``init_cache``."""
-        cfg = self.cfg
-        shape = (num_pages + 1, page_size, cfg.n_kv_heads, cfg.head_dim)
+        ``(num_pages + 1, page_size, n_kv_heads, head_dim)``, or MLA's latent
+        pools ckv ``(num_pages + 1, page_size, kv_lora_rank)`` and krope
+        ``(num_pages + 1, page_size, qk_rope_head_dim)`` (``page_leaves``).
+        The extra page is the scratch page that dead block-table entries and
+        padding rows point at. Zero-filled, like the reference's
+        ``init_cache``."""
         dt = dtype if dtype is not None else self.dtype
-        return [
-            {"k": torch.zeros(shape, dtype=dt, device=self.device),
-             "v": torch.zeros(shape, dtype=dt, device=self.device)}
-            for _ in cfg.layer_specs
-        ]
+        leaves = page_leaves(self.cfg, page_size)
+        return [{name: torch.zeros((num_pages + 1,) + shape, dtype=dt, device=self.device)
+                 for name, shape in leaves.items()}
+                for _ in self.cfg.layer_specs]
 
 
 def build_model(cfg: ModelConfig, dtype: torch.dtype = torch.float32,

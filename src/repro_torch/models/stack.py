@@ -1,7 +1,7 @@
 """The decoder stack of the serial execution path.
 
 The PyTorch counterpart of the JAX package's ``models/stack.py`` for
-attention and Mamba2 mixers, with dense FFNs, MoE FFNs (whose auxiliary
+attention (GQA or MLA) and Mamba2 mixers, with dense FFNs, MoE FFNs (whose auxiliary
 loss is dropped until training needs it) or none. JAX stacks each period
 position's parameters and caches over periods and walks them with
 ``lax.scan``; the port keeps one entry per layer in layer order
@@ -23,8 +23,8 @@ from repro_torch.models.moe import moe_apply
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, *,
                      dtype: torch.dtype, device) -> dict:
-    """Attention: a dense KV cache in ``dtype``; Mamba2: its fp32 state (as
-    in JAX, whatever ``dtype``)."""
+    """Attention: a dense KV cache (MLA: its latent) in ``dtype``; Mamba2:
+    its fp32 state (as in JAX, whatever ``dtype``)."""
     if spec.mixer == "attn":
         return kv_cache_init(cfg, batch, max_len, dtype=dtype, device=device)
     if spec.mixer == "mamba2":
@@ -62,7 +62,8 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, h, angles, *, cache=None,
 def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, dtype: torch.dtype,
                      device) -> List[dict]:
     """One zeroed cache per layer: ``{"k", "v"}`` of (batch, max_len, KV, d)
-    for attention, ``{"conv", "ssm"}`` for Mamba2."""
+    for GQA attention, ``{"ckv", "krope"}`` of (batch, max_len, .) for MLA,
+    ``{"conv", "ssm"}`` for Mamba2."""
     return [layer_cache_init(cfg, spec, batch, max_len, dtype=dtype, device=device)
             for spec in cfg.layer_specs]
 

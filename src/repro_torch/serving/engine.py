@@ -98,6 +98,12 @@ def _pow2_at_least(n: int, start: int = 8) -> int:
     return m
 
 
+def _pairs(tiles: list) -> Optional[torch.Tensor]:
+    """The kernel's tiles, split off a step's metadata, as (n, 2) rows; None
+    where the arch builds none (MLA runs no kernel)."""
+    return tiles[0].view(-1, 2) if tiles else None
+
+
 class HostPool:
     """Host buffers for swapped KV, kept and reused: pinning memory costs far
     more than a copy into it (on an H100's host, pinning ran at about 2.8
@@ -196,7 +202,9 @@ class Engine:
         self.copy_log: Optional[list] = None
 
         if attn_kernel == "paged":
-            self._group = self.cfg.n_heads // self.cfg.n_kv_heads
+            # B1's q-tiles group G query heads a KV head; MLA runs no kernel
+            # and reads no tiles
+            self._group = None if self.cfg.mla else self.cfg.n_heads // self.cfg.n_kv_heads
             # physically paged KV: num_kv_blocks relocatable pages (default:
             # the dense layout's capacity) + 1 scratch page. Backing the
             # allocator with the same bound makes OutOfBlocks a real
@@ -672,15 +680,18 @@ class Engine:
             return self._packed_paged(plan, tokens, slots, positions, n_rows, rows)
         # dense: ONE host->device copy of the rows' tokens, slots and
         # positions, the rows to sample and B2's row tiles (a chunk's rows
-        # share its slot's keys); DenseView derives the rest
+        # share its slot's keys; MLA runs no kernel, so none are built);
+        # DenseView derives the rest
         cfg = self.model.cfg
-        tiles = row_tiles(slots[:, None], positions + 1, cfg.n_heads // cfg.n_kv_heads)
-        parts = [tokens, slots, positions, np.asarray(rows, np.int32), tiles.ravel()]
+        parts = [tokens, slots, positions, np.asarray(rows, np.int32)]
+        if not cfg.mla:
+            parts.append(row_tiles(slots[:, None], positions + 1,
+                                   cfg.n_heads // cfg.n_kv_heads).ravel())
         meta = torch.from_numpy(np.concatenate(parts)).to(self.device)
-        d_tokens, d_slots, d_pos, d_rows, d_tiles = torch.split(meta, [p.size for p in parts])
+        d_tokens, d_slots, d_pos, d_rows, *d_tiles = torch.split(meta, [p.size for p in parts])
         logits, self.cache = packed_step(
             self.model, self.params, self.cache, d_tokens, d_slots, d_pos,
-            DenseView(d_slots, d_pos, tiles=d_tiles.view(-1, 2)))
+            DenseView(d_slots, d_pos, tiles=_pairs(d_tiles)))
         return logits[d_rows.long()]
 
     def _packed_paged(self, plan: StepPlan, tokens, slots, positions, n_rows: int,
@@ -708,16 +719,16 @@ class Engine:
                                f"!= packed rows {n_rows}")
         if nd and not np.array_equal(kv_lens[:nd], positions[:nd] + 1):
             raise RuntimeError("decode kv_lens drifted from engine positions")
-        tiles = q_tiles(cu_q, self._group)
-
         # ONE host->device copy of the step's metadata; every layer reuses it
         parts = [tokens, slots, positions, self.block_mirror[:, :nb].ravel(), cu_q,
-                 kv_lens, seg_slots, tiles.ravel(), np.asarray(rows, np.int32)]
+                 kv_lens, seg_slots, np.asarray(rows, np.int32)]
+        if self._group is not None:
+            parts.append(q_tiles(cu_q, self._group).ravel())
         meta = torch.from_numpy(np.concatenate(parts)).to(self.device)
         views = torch.split(meta, [p.size for p in parts])
-        d_tokens, d_slots, d_pos, d_bt, d_cu, d_kv, d_seg, d_tiles, d_rows = views
+        d_tokens, d_slots, d_pos, d_bt, d_cu, d_kv, d_seg, d_rows, *d_tiles = views
         paged = PagedView(d_bt.view(self.n_slots + 1, nb), self.page_size, cu_q_lens=d_cu,
-                          kv_lens=d_kv, seg_slots=d_seg, tiles=d_tiles.view(-1, 2))
+                          kv_lens=d_kv, seg_slots=d_seg, tiles=_pairs(d_tiles))
         logits, self.cache = packed_step(self.model, self.params, self.cache, d_tokens,
                                          d_slots, d_pos, paged)
         return logits[d_rows.long()]

@@ -44,7 +44,10 @@ def _tensor(dtype, device):
 
 def from_jax_params(tree, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"):
     """``Model.init``'s parameter pytree (as numpy) -> the port's params, in
-    ``dtype`` except the leaves JAX uses in fp32 (``mamba.FP32_LEAVES``)."""
+    ``dtype`` except the leaves JAX uses in fp32 (``mamba.FP32_LEAVES``).
+    Every mixer's leaves cross by name: GQA's, MLA's (``q_down``,
+    ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``, ``kv_up``, ``wo``) and
+    Mamba2's."""
     cast, f32 = _tensor(dtype, device), _tensor(torch.float32, device)
 
     def conv(a, key):
@@ -64,10 +67,11 @@ def caches_from_jax(cache, cfg: ModelConfig, *, dtype=torch.float32, device="cpu
     """A JAX per-layer cache tree (as numpy: ``{"prefix": [...], "periods":
     {str(i): tree stacked over periods}}``) -> the port's per-layer list. It
     fits the layouts the JAX package builds with ``stack_cache_init``: the
-    paged engine's pool (leaves ``(pages, page, KV, d)``), the dense cache of
-    ``Model.init_cache`` (``{"k","v"}`` of ``(batch, max_len, KV, d)``) in
-    ``dtype``, and Mamba2's ``{"conv", "ssm"}`` state, which stays fp32 as
-    JAX keeps it."""
+    paged engine's pool (leaves ``(pages, page, KV, d)``; MLA's ``{"ckv",
+    "krope"}`` of ``(pages, page, .)``), the dense cache of
+    ``Model.init_cache`` (``{"k","v"}`` of ``(batch, max_len, KV, d)``;
+    MLA's latent of ``(batch, max_len, .)``) in ``dtype``, and Mamba2's
+    ``{"conv", "ssm"}`` state, which stays fp32 as JAX keeps it."""
     cast, f32 = _tensor(dtype, device), _tensor(torch.float32, device)
 
     def conv(a, key):
