@@ -42,7 +42,10 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   B1-B4 at KV 2, d 128 with G 6 (qwen2-1.5b) and G 16
                   (chatglm3-6b; B3 at G 6 only), bf16 and fp32, at their main
                   paths' shapes, and B1 at KV 4, G 8 (qwen3-moe-30b-a3b,
-                  g8_kv4). B5's scratch (b5_scratch_checks): one call
+                  g8_kv4). B1 as the two-call engine calls it for jamba's
+                  later chunks (b1_row8192_at*): a 512-row chunk at offsets
+                  512 and 2560 over a slot's whole row, one page of 8192
+                  tokens, a (1, 1) table. B5's scratch (b5_scratch_checks): one call
                   captured in a CUDA graph and replayed twice on new inputs,
                   bit-equal to eager, its epoch word moved on by one a
                   replay; a call on a second stream on a scratch of its own;
@@ -59,9 +62,11 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   reduced_serial  reduced width, fp32, on the card: serial per-request prefill +
                   decode (B4, B3), the paged engine (B1) and the dense engine (B2)
                   give the same greedy tokens, and the CPU's serial run too
-  reduced_two_call reduced mamba2-2.7b in fp32: the two-call engine on the card
-                  (B5) and on the CPU and the serial path on the card give the
-                  same greedy tokens
+  reduced_two_call reduced mamba2-2.7b and reduced jamba-v0.1-52b (Mamba1,
+                  attention on one layer of 8, MoE) in fp32: the two-call
+                  engine on the card (B5; jamba's attention B4, B1 and B3)
+                  and on the CPU and the serial path on the card give the
+                  same greedy tokens, each kernel launched as the plans say
   reduced_archs   gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b, llama3.1-70b
                   and qwen3-moe-30b-a3b (MoE, dropless) at reduced widths with
                   their published GQA groups (G 2, 6, 16, 8, 8, 8), and
@@ -131,8 +136,16 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   rescale rejected; device ms beside the weights' and the
                   segments' latent bytes, the gathers' share; peak extra
                   memory <= 1 GiB
+  mamba1_layer    one Mamba1 layer of jamba-v0.1-52b at full width (d_in 8192,
+                  state 16), bf16, at a 512-token prefill continuing a
+                  carried state and an 8-row decode: against JAX's formula
+                  in fp32 token by token at the kernels' bf16 row allowance,
+                  a scan that drops the carried h rejected; device ms beside
+                  the weights' bytes or the projections' operations; peak
+                  extra memory <= 1 GiB (no kernel: the scan is plain
+                  PyTorch)
   serve_qwen2, serve_chatglm3, serve_qwen3, serve_llama70b, serve_qwen3moe,
-  serve_deepseek
+  serve_deepseek, serve_jamba
                   SERVE's workload through the paged engine at the published
                   widths of qwen2-1.5b (G 6, biases, tied), chatglm3-6b (G
                   16, half-dim RoPE, biases), qwen3-32b (G 8, q/k norms) and
@@ -141,7 +154,13 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   its 80 layers and deepseek-v2-236b (MLA, 160 experts top
                   6, two shared, dropless) at 8 of its 60, its pool sized
                   at the latent's 1152 B a token-layer and no kernel
-                  launched; qwen3-moe and deepseek then a profiled window
+                  launched; and jamba-v0.1-52b at 16 of its 32 layers (2
+                  attention, 14 Mamba1, 8 MoE layers of 16 experts top 2,
+                  dropless) through the two-call engine, B4, B1 and B3 on
+                  its attention layers as its segments and steps say, the
+                  decode call's gather of the decode slots' K/V rows
+                  counted; qwen3-moe, deepseek and jamba then a profiled
+                  window
 
 then the kernels line (each kernel's launches on its main path and on every
 path that ran it, ``launches_by_path``), the card's name and power limit as
@@ -196,7 +215,12 @@ ARCH_SERVES = [("serve_qwen2", "qwen2-1.5b", None, False),
                ("serve_qwen3moe", "qwen3-moe-30b-a3b", None, True),
                # MLA, 160 experts: 439 GiB in bf16; 8 of its 60 layers (the
                # dense layer 0 and 7 MoE layers, 54.4 GiB); no kernel runs
-               ("serve_deepseek", "deepseek-v2-236b", 8, True)]
+               ("serve_deepseek", "deepseek-v2-236b", 8, True),
+               # the Mamba1 hybrid through the two-call engine: 96.1 GiB in
+               # bf16; 16 of its 32 layers (2 scan periods of 8: attention
+               # on 4 and 12, Mamba1 elsewhere, MoE on the odd layers; 48.5
+               # GiB), B4, B1 and B3 on its attention layers
+               ("serve_jamba", "jamba-v0.1-52b", 16, True)]
 # moe_layer's row counts: a decode-only step of SERVE (8 rows) and a
 # prefill-bearing one (a 512-token chunk beside 8 decode rows)
 MOE_ROWS = (8, 520)
@@ -207,6 +231,20 @@ MOE_ROWS = (8, 520)
 MLA_DECODE_CTX = (1024, 1463, 1902, 2341, 2779, 3218, 3657, 4096)
 MLA_CHUNK = (3072, 512)
 MLA_PEAK_GIB = 1.0
+# mamba1_layer's step shapes: a 512-token prefill continuing the state the
+# prompt's first 512 tokens left (offset 512), and an 8-row decode; one
+# call's extra memory may not pass 1 GiB
+MAMBA1_PREFILL = 512
+MAMBA1_ROWS = 8
+MAMBA1_PEAK_GIB = 1.0
+# the final ssm state's relative rms error against the fp32 reference: each
+# of its bf16 inputs (in_proj's output) is rounded by up to 2^-9, which
+# moves the state by about 2^-9 of its rms; 2^-7 leaves room for that
+MAMBA1_STATE_RMS = 2.0**-7
+# B1 over a two-call slot row (one page of max_len tokens, a (1, 1) table):
+# a 512-token chunk at these offsets, as jamba's later prefill chunks run it
+WHOLE_ROW = 8192
+WHOLE_ROW_CHUNKS = (512, 2560)
 # every kernel of the port: its source and the TPU kernel it replaces
 KERNELS = {
     "mixed_paged_attention": ("src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
@@ -221,6 +259,13 @@ KERNELS = {
                        "src/repro/kernels/ssd.py:81"),
 }
 NO_LIBRARY = "none: no one PyTorch call computes the SSD chunk scan (a causal, decayed scan)"
+# the names of each kernel's launches in a profiler trace (its wrapper's
+# kernels: B1's plan, producers and combine; B3's bf16 cluster kernel, or
+# the per-row kernel and combine in fp32; B4's wgmma, mma or fp32 kernel)
+TRACE_KEYS = {"mixed_paged_attention": ("mixed_paged_attention",),
+              "paged_attention": ("tile_attention", "row_attention", "combine_splits"),
+              "decode_attention": ("cluster_decode", "row_attention", "combine_splits"),
+              "flash_attention": ("flash_",), "ssd_chunk_scan": ("ssd_chunk_scan",)}
 
 
 def emit(obj) -> None:
@@ -751,7 +796,34 @@ def kernel_parity(torch):
         recs[name] = run_case(torch, name, case, split_fault=True, library=library)
         del case
         torch.cuda.empty_cache()
+    # B1 as the two-call engine's attention calls it for jamba's later
+    # chunks: the slot's whole row one page, a (1, 1) table. Its chunk CTAs
+    # do not split over keys (the plan, held to ref.mixed_split_plan, says
+    # so), so no combine fault applies; every key past the chunk's last is
+    # NaN, and a read of one would fail the check
+    for i, start in enumerate(WHOLE_ROW_CHUNKS):
+        name = f"b1_row{WHOLE_ROW}_at{start}_bf16"
+        case = whole_row_case(torch, 22 + i, start, 512)
+        recs[name] = run_case(torch, name, case)
+        del case
+        torch.cuda.empty_cache()
     return recs
+
+
+def whole_row_case(torch, seed, start, length):
+    """B1's inputs as ``attention.cache_call`` builds them for a chunk of one
+    two-call slot: ``length`` rows at ``start``, one segment, the slot's row
+    one page of ``WHOLE_ROW`` tokens, a (1, 1) table, no padding rows or
+    segments; jamba's heads (KV 8, G 4, d 128), bf16, every key past the
+    chunk's last NaN."""
+    from repro_torch.kernels.paged_attention import q_tiles
+
+    case = make_case(torch, seed, [(length, start + length)], kv=8, g=4, d=128,
+                     page=WHOLE_ROW, dtype=torch.bfloat16, pad_rows=0)
+    cu = case["cu"][:2]
+    case.update(cu=cu, kv_lens=case["kv_lens"][:1], tables=case["tables"][:1],
+                tiles=torch.from_numpy(q_tiles(cu.cpu().numpy(), 4)).to("cuda"))
+    return case
 
 
 # ---------------------------------------------------------------------------
@@ -2200,6 +2272,176 @@ def mla_layer(torch):
     return recs
 
 
+def mamba1_plain(torch, p, cfg, u, state, dtype):
+    """JAX's ``mamba1_apply`` written out on the card, token by token, from
+    the same bf16 weights, input and state, with the activations in
+    ``dtype``: in fp32 it is the reference (no rounding); in bf16 it rounds
+    op by op where JAX's code does (every projection's output, each step of
+    the conv, the silu, the skip and the gate), with dt, B, C, A and the
+    state in fp32 as JAX keeps them. Returns (y fp32, the final ssm state);
+    ``state`` is left as it was."""
+    import torch.nn.functional as F
+
+    from repro_torch.models.mamba import _m1_dims, causal_conv
+
+    d_in, dt_rank, ds = _m1_dims(cfg)
+    f = {k: ({n: t.to(dtype) for n, t in v.items()} if isinstance(v, dict) else v.to(dtype))
+         for k, v in p.items()}
+    u = u.to(dtype)
+    xz = u @ f["in_proj"]["w"]
+    x, z = xz[..., :d_in], xz[..., d_in:]
+    x, _ = causal_conv(x, f["conv_w"], f["conv_b"], state["conv"])
+    x = F.silu(x)
+    xdbc = x @ f["x_proj"]["w"]
+    dt = F.softplus((xdbc[..., :dt_rank] @ f["dt_proj"]["w"] + f["dt_proj"]["b"]).float())
+    B_, C_ = xdbc[..., dt_rank:dt_rank + ds].float(), xdbc[..., dt_rank + ds:].float()
+    A = -torch.exp(p["A_log"].float())
+    x32 = x.float()
+    h = state["ssm"].clone()
+    ys = []
+    for t in range(u.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * A) * h + (dt[:, t] * x32[:, t])[..., None] * B_[:, t,
+                                                                                        None, :]
+        ys.append(torch.einsum("bds,bs->bd", h, C_[:, t]))
+    y = torch.stack(ys, 1).to(dtype) + f["D"] * x
+    y = y * F.silu(z)
+    return (y @ f["out_proj"]["w"]).float(), h
+
+
+def mamba1_layer(torch):
+    """One Mamba1 layer of jamba-v0.1-52b at its published widths (d_model
+    4096, d_in 8192, state 16, dt_rank 256, conv 4), bf16, weights drawn from
+    seed 0 by ``mamba1_init`` but for three leaves that the init makes
+    constant and one whose scale hides the scan: D from 1 + N(0, 0.3^2),
+    conv_b from N(0, 0.1^2), dt_proj's bias the inverse softplus of step
+    sizes log-uniform in [1e-3, 0.1] (Mamba's own init, which makes the
+    state's memory hundreds of tokens long), and x_proj drawn at 4 times the
+    init's std (at the init's, B and C are so small that the scan is a few
+    percent of the output beside D x, and a fault in it would not show). At
+    two step shapes:
+    ``prefill512``, a ``MAMBA1_PREFILL``-token chunk that continues the state
+    the prompt's first ``MAMBA1_PREFILL`` tokens left (the chunked scan, four
+    chunks of 128),
+    and ``decode8``, ``MAMBA1_ROWS`` rows' recurrent update from carried
+    states. Held to ``mamba1_plain`` in fp32 (JAX's formula, token by token,
+    from the same bf16 values): the output rows at ``BF16_ROW``, and the
+    final ssm state's relative rms error at ``MAMBA1_STATE_RMS`` (a state
+    element sums up to hundreds of tokens' terms that partly cancel, so an
+    element's error is held to the state's scale, not its own);
+    ``control_tol_used`` holds JAX's formula in bf16, rounded op by op, to
+    the same reference at the same allowance, to show what bf16 alone
+    costs; a scan and a decode step that drop the carried h (a
+    source mutation of the module) must fail it ``FAULT_MARGIN`` times over. Device ms (and
+    kernels and host µs a call) beside the bound: the weights (105.2 M
+    parameters, 210 MB in bf16), the input and output rows and the state
+    read and written over 3.35 TB/s, or the projections' operations (2 a
+    weight a row) over 989 TFLOP/s plus the scan's (8 a row, channel and
+    state element) over the fp32 rate, whichever is larger. Peak extra
+    memory of one call, at most ``MAMBA1_PEAK_GIB``. Mamba1 has no kernel in
+    either package: the scan is plain PyTorch."""
+    import inspect
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+
+    cfg = get_config("jamba-v0.1-52b")
+    d, (d_in, dt_rank, ds) = cfg.d_model, mamba._m1_dims(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = mamba.mamba1_init(cfg, generator=gen, dtype=torch.bfloat16, device="cuda")
+
+    def drawn(shape, mean, std):
+        return (mean + std * torch.randn(shape, generator=gen, device="cuda")).to(torch.bfloat16)
+
+    p["D"] = drawn((d_in,), 1.0, 0.3)
+    p["conv_b"] = drawn((d_in,), 0.0, 0.1)
+    lo, hi = math.log(1e-3), math.log(0.1)
+    step = torch.exp(lo + (hi - lo) * torch.rand((d_in,), generator=gen, device="cuda"))
+    p["dt_proj"]["b"] = torch.log(torch.expm1(step)).to(torch.bfloat16)
+    p["x_proj"]["w"] = (4.0 * p["x_proj"]["w"].float()).to(torch.bfloat16)
+    leaves = [t for v in p.values() for t in (v.values() if isinstance(v, dict) else [v])]
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    matmul_weights = sum(p[k]["w"].numel() for k in ("in_proj", "x_proj", "dt_proj", "out_proj"))
+    # the fault: the carried h dropped, in the chunked scan and in the
+    # decode step's update
+    src = inspect.getsource(mamba)
+    for old, bad in (("h_all = b.addcmul_(a, h[:, None])", "h_all = b"),
+                     ("hT = h.mul_(a).add_(b)", "hT = h.zero_().add_(b)")):
+        assert old in src
+        src = src.replace(old, bad)
+    fault_mod = types.ModuleType("h0_dropped")
+    exec(compile(src, "h0_dropped", "exec"), fault_mod.__dict__)
+
+    # the prefill's carried state: what the first 512 tokens of the prompt left
+    first = torch.randn((1, MAMBA1_PREFILL, d), generator=gen, device="cuda").to(torch.bfloat16)
+    carried = mamba.mamba1_state_init(cfg, 1, device="cuda")
+    mamba.mamba1_apply(p, cfg, first, state=carried)
+    decode_state = {"conv": torch.randn((MAMBA1_ROWS, cfg.m_conv - 1, d_in), generator=gen,
+                                        device="cuda"),
+                    "ssm": 0.5 * torch.randn((MAMBA1_ROWS, d_in, ds), generator=gen,
+                                             device="cuda")}
+    shapes = ((f"prefill{MAMBA1_PREFILL}",
+               torch.randn((1, MAMBA1_PREFILL, d), generator=gen, device="cuda"), carried),
+              ("decode8", torch.randn((MAMBA1_ROWS, 1, d), generator=gen, device="cuda"),
+               decode_state))
+    recs = {}
+    for name, u, state0 in shapes:
+        u = u.to(torch.bfloat16)
+        B, S = u.shape[:2]
+        N = B * S
+        plain, h_plain = mamba1_plain(torch, p, cfg, u, state0, torch.float32)
+        rows4 = (N, 1, 1, d)
+        control = tol_used(mamba1_plain(torch, p, cfg, u, state0, torch.bfloat16)[0].view(rows4),
+                           plain.view(rows4), "bfloat16")
+        fresh = lambda: {k: v.clone() for k, v in state0.items()}  # noqa: E731
+        st = fresh()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y, _ = mamba.mamba1_apply(p, cfg, u, state=st)
+        torch.cuda.synchronize()
+        peak_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+        used = tol_used(y.float().view(rows4), plain.view(rows4), "bfloat16")
+        h_rel = float((st["ssm"] - h_plain).norm() / h_plain.norm())
+        bad, _ = fault_mod.mamba1_apply(p, cfg, u, state=fresh())
+        fault_used = tol_used(bad.float().view(rows4), plain.view(rows4), "bfloat16")
+        state_bytes = sum(t.numel() * 4 for t in state0.values())
+        nbytes = weight_bytes + 2 * N * d * 2 + 2 * state_bytes
+        flops_bf16 = 2 * N * matmul_weights
+        flops_fp32 = 8 * N * d_in * ds
+        t_bytes = nbytes / H100_BYTES_PER_S
+        t_ops = (flops_bf16 / H100_PEAK_FLOPS["bfloat16"]
+                 + flops_fp32 / H100_PEAK_FLOPS["float32"])
+        bound = max(t_bytes, t_ops) * 1e3
+        st = fresh()
+        call = lambda: mamba.mamba1_apply(p, cfg, u, state=st)  # noqa: E731
+        ms, how, parts, records = device_ms(torch, call, reps=10)
+        rec = dict(phase="mamba1_layer", case=name, rows=B, tokens=S, d_model=d, d_in=d_in,
+                   d_state=ds, dt_rank=dt_rank, dtype="bfloat16",
+                   max_abs_err=float((y.float() - plain).abs().max()),
+                   rel_rms_err=float((y.float() - plain).norm() / plain.norm()),
+                   tol_used=used, hT_rel_rms_err=h_rel, control_tol_used=control,
+                   fault_tol_used={"h0_dropped": fault_used},
+                   finite=bool(torch.isfinite(y).all() and torch.isfinite(st["ssm"]).all()),
+                   ms=ms, timing=how,
+                   kernels_a_call=sum(records.values()) / 10 if records else None,
+                   top_kernels=dict(sorted(parts.items(), key=lambda kv: -kv[1])[:6]),
+                   host_us=host_us(torch, call, 10), bound_ms=bound,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=nbytes, weight_bytes=weight_bytes,
+                   params=sum(t.numel() for t in leaves), flops_bf16=flops_bf16,
+                   flops_fp32=flops_fp32, peak_extra_gib=peak_gib)
+        rec["ok"] = (rec["finite"] and used <= 1 and h_rel <= MAMBA1_STATE_RMS
+                     and fault_used >= FAULT_MARGIN and peak_gib <= MAMBA1_PEAK_GIB)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"mamba1_layer {name}: {rec}")
+        recs[name] = rec
+    del p
+    torch.cuda.empty_cache()
+    return recs
+
+
 def full_model(torch, arch="llama3.1-8b", layers=None):
     """A model at its published widths, bf16, weights drawn on the card from
     seed 0, at its published depth or, with ``layers``, its first layers
@@ -2276,9 +2518,11 @@ def serve_engine(torch, model, params, attn_kernel, c=SERVE, sched=None, prompts
     from repro_torch.launch.serve import sized_kv_pool
     from repro_torch.serving.request import Request
 
+    from repro_torch.core.packed_step import supports_packed
+
     cfg = model.cfg
     dev = torch.device("cuda")
-    pool, basis = None, "dense slot cache" if cfg.n_attn_layers else "two-call state"
+    pool, basis = None, "dense slot cache" if supports_packed(cfg) else "two-call state"
     if attn_kernel == "paged":
         pool, basis = sized_kv_pool(cfg, dev, torch.bfloat16, c["max_batch"], c["max_len"],
                                     c["page"])
@@ -2356,8 +2600,11 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
           profile=True, sched=None, prompts=None, engine_cls=None, extra=None):
     """A workload (SERVE's by default) through the engine: ``paged`` (B1,
     the main path; then a profiled window) or ``dense`` (B2, the dense
-    fallback) for an attention arch; for Mamba2-2.7B the two-call path (B5
-    in every layer of every prefill segment; then a profiled window).
+    fallback) for an attention arch; for an arch that cannot pack
+    (``auto``: Mamba2-2.7B, jamba's hybrid) the two-call path (B5 in every
+    Mamba2 layer of every prefill segment; B4, B1 and B3 in jamba's
+    attention layers; then a profiled window). Each kernel's launches must
+    equal ``expected_launches`` of the run's plans.
     ``phase`` names the record (default: serve, serve_dense or
     serve_mamba); ``profile`` False skips the profiled window. ``sched``,
     ``prompts`` and ``engine_cls`` go to ``serve_engine``; ``extra(eng,
@@ -2371,19 +2618,18 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
     eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel, c, sched, prompts,
                                           engine_cls)
     if eng.two_call:
-        default, kernel = "serve_mamba", "ssd_chunk_scan"
+        default = "serve_mamba"
     elif attn_kernel == "paged":
-        default, kernel = "serve", "mixed_paged_attention"
+        default = "serve"
     else:
-        default, kernel = "serve_dense", "paged_attention"
+        default = "serve_dense"
     phase = phase or default
-    if cfg.mla:
-        kernel = None  # MLA's latent attention is plain PyTorch: no kernel runs
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     step_ms, prefill_tok, decode_tok, has_prefill, step_tok, segments = [], 0, 0, [], [], 0
+    plans = []
     t_run = time.perf_counter()
     while eng.scheduler.has_work and eng.steps_run < 2000:
         t = time.perf_counter()
@@ -2391,6 +2637,7 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
         torch.cuda.synchronize()
         if plan is None:
             break
+        plans.append(plan)
         step_ms.append((time.perf_counter() - t) * 1e3)
         prefill_tok += plan.total_prefill_tokens
         decode_tok += len(plan.decode_rids)
@@ -2399,7 +2646,11 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
         segments += len(plan.prefill_segments)
     run_s = time.perf_counter() - t_run
     counts, plain_cuda = read_counts()
-    launches = counts[kernel] if kernel else 0
+    expect = expected_launches(cfg, plans, eng.two_call, attn_kernel)
+    # the path's kernels, for the record and the profile's grouping; None
+    # where none runs (MLA's latent attention is plain PyTorch)
+    kernel = "+".join(k for k, n in expect.items() if n) or None
+    launches = sum(counts.values())
     reqs = [eng.scheduler.requests[r] for r in range(c["requests"])]
     done = all(r.state is State.DONE and len(r.output) == c["max_new"] for r in reqs)
     pre = [i for i, f in enumerate(has_prefill) if f]
@@ -2429,35 +2680,76 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
         decode_only_step_ms=1e3 * dec_s / len(dec) if dec else None,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         kernel=kernel, kernel_launches=launches, launches_by_kernel=counts,
-        plain_cuda_calls=plain_cuda, nonfinite_logits=eng.nonfinite,
+        launches_expected=expect, plain_cuda_calls=plain_cuda, nonfinite_logits=eng.nonfinite,
         all_completed=done, preemptions=eng.scheduler.stats.preemptions,
         outputs=[r.output for r in reqs], nvidia_smi=smi)
-    # the attention kernels launch once per layer and step; B5 once per
-    # layer and prefill segment (the decode call is plain PyTorch); MLA
-    # launches none of them
-    expect = 0 if kernel is None else cfg.n_layers * (segments if eng.two_call else
-                                                      eng.steps_run)
+    if eng.two_call:
+        # where the two-call engine's steps went: the segments by where they
+        # start, the decode calls in place on contiguous slots or on a
+        # gathered copy of the decode slots' rows (K/V rows included)
+        runs = [sorted(p.decode_slots) for p in plans if p.decode_slots]
+        rec.update(segments_from_zero=sum(s.start == 0 for p in plans
+                                          for s in p.prefill_segments),
+                   decode_calls=len(runs),
+                   decode_calls_gathered=sum(r[-1] - r[0] != len(r) - 1 for r in runs),
+                   decode_gather_bytes=eng.decode_gather_bytes,
+                   kv_rows_gib=sum(t.numel() * t.element_size() for layer in eng.cache
+                                   for k, t in layer.items() if k in ("k", "v")) / 2**30)
     if extra is not None:
         rec.update(extra(eng, step_ms))
-    rec["ok"] = (done and launches == expect and plain_cuda == 0 and eng.nonfinite == 0
+    # a hybrid's attention layers take each of their three kernels
+    hybrid = eng.two_call and cfg.n_attn_layers
+    rec["ok"] = (done and counts == expect and plain_cuda == 0 and eng.nonfinite == 0
                  and rec.get("a5_ok", True)
-                 and (kernel is not None or not any(counts.values())))
+                 and (not hybrid or all(expect[k] for k in ("flash_attention",
+                                                            "mixed_paged_attention",
+                                                            "decode_attention"))))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"{rec['phase']}: {rec}")
     del eng
     torch.cuda.empty_cache()
     if profile and attn_kernel != "dense":
-        profile_serve(torch, model, params, phase, kernel)
+        profile_serve(torch, model, params, phase, [k for k, n in expect.items() if n])
     return rec
 
 
-def profile_serve(torch, model, params, phase, kernel):
+def expected_launches(cfg, plans, two_call, attn_kernel):
+    """Each kernel's launches a serving run must make, from its plans. The
+    packed paged step launches B1 once a layer and step, the dense one B2;
+    MLA's attention is plain PyTorch and launches neither. On the two-call
+    path each attention layer launches, once a call, what
+    ``attention.cache_call`` picks: B4 for a segment of more than one token
+    from offset 0, B1 for a later one (the slot's row one page), B3 for the
+    decode call and for a one-token segment; each Mamba2 layer B5 once a
+    segment of more than one token (a one-token segment and the decode call
+    take the recurrent update, plain PyTorch); Mamba1 no kernel."""
+    names = [fn.__name__ for fn in _wrappers_and_plain()[0]]
+    expect = dict.fromkeys(names, 0)
+    if not two_call:
+        if not cfg.mla:
+            kernel = "mixed_paged_attention" if attn_kernel == "paged" else "paged_attention"
+            expect[kernel] = cfg.n_layers * len(plans)
+        return expect
+    segs = [s for p in plans for s in p.prefill_segments]
+    n_attn = cfg.n_attn_layers
+    n_m2 = sum(spec.mixer == "mamba2" for spec in cfg.layer_specs)
+    first = sum(s.start == 0 and s.length > 1 for s in segs)
+    later = sum(s.start > 0 and s.length > 1 for s in segs)
+    single = sum(s.length == 1 for s in segs)
+    expect.update(flash_attention=n_attn * first, mixed_paged_attention=n_attn * later,
+                  decode_attention=n_attn * (sum(bool(p.decode_slots) for p in plans) + single),
+                  ssd_chunk_scan=n_m2 * (first + later))
+    return expect
+
+
+def profile_serve(torch, model, params, phase, kernels):
     """Where the device time of a serving run goes. One workload (a 2048- and
     a 1024-token prompt, 16 new tokens each) runs twice on fresh engines:
     untraced for its wall time, then under torch.profiler (device activity
-    only) for device time summed by kernel (``kernel``'s own, GEMMs, the
-    rest). The idle share is one minus the traced device time over the
+    only) for device time summed by kernel (each of ``kernels``, the port's
+    kernels of the path, named in the trace as ``TRACE_KEYS`` says; GEMMs;
+    the rest). The idle share is one minus the traced device time over the
     untraced wall time."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
@@ -2491,21 +2783,24 @@ def profile_serve(torch, model, params, phase, kernel):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         eng.run(max_steps=200)
         torch.cuda.synchronize()
-    groups, kernels = {kernel or "no_kernel": 0.0, "gemm": 0.0, "other": 0.0}, {}
+    groups = dict.fromkeys(kernels or ["no_kernel"], 0.0)
+    groups.update(gemm=0.0, other=0.0)
+    by_name = {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue  # host-side ops: their device time is their kernels'
         ms = evt.self_device_time_total / 1e3
         if ms <= 0:
             continue
-        kernels[evt.key] = kernels.get(evt.key, 0.0) + ms
+        by_name[evt.key] = by_name.get(evt.key, 0.0) + ms
         low = evt.key.lower()
-        group = (kernel if kernel and kernel in low else
+        mine = [k for k in kernels if any(key in low for key in TRACE_KEYS[k])]
+        group = (mine[0] if mine else
                  "gemm" if any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet"))
                  else "other")
         groups[group] += ms
     busy = sum(groups.values())
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     emit(dict(phase=f"{phase}_profile", steps=steps, traced_steps=eng.steps_run,
               wall_ms=wall_ms, device_ms=groups, device_busy_ms=busy,
               idle_share=(1 - busy / wall_ms) if busy else None, device_time_seen=busy > 0,
@@ -2513,66 +2808,91 @@ def profile_serve(torch, model, params, phase, kernel):
 
 
 def reduced_two_call(torch):
-    """Reduced mamba2-2.7b (2 layers) in fp32: the two-call engine on the card
-    (B5), the same engine on the CPU (plain version, itself held to the JAX
-    engine by the CPU tests) and the serial path on the card must give the
-    same greedy tokens. Slots are reused, and the engine's chunks of 8 hand
-    the state from segment to segment (B5's h0) where the serial path
-    prefills each prompt in one call."""
+    """The two-call engine at reduced width in fp32 on the card and on the
+    CPU (plain versions, themselves held to the JAX engine by the CPU tests),
+    and the serial path on the card: the same greedy tokens. Reduced
+    mamba2-2.7b (2 layers; B5) with its init's weights; reduced jamba (one
+    period of 8 layers: Mamba1, attention on layer 4, MoE on the odd layers,
+    dropless) with biases, norm scales and routers drawn from a seed
+    (``_drawn_leaves``), whose attention layer launches B4 for a prompt's
+    first chunk, B1 for a later chunk (the slot's row one page) and B3 for
+    the decode call and a one-token chunk. Slots are reused, and the
+    engine's chunks of 8 hand the state from segment to segment where the
+    serial path prefills each prompt in one call. Each kernel's launches on
+    the card equal ``expected_launches`` of the run's plans."""
     import numpy as np
 
     from repro_torch.configs import get_config, reduce_config
+    from repro_torch.configs.reduced import dropless
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.models import build_model
     from repro_torch.serving.request import Request
     from repro_torch.serving.serial import serial_reference
 
-    cfg = reduce_config(get_config("mamba2-2.7b"), periods=2)
-    cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
-    params = cpu_model.init(torch.Generator().manual_seed(0))
-    rng = np.random.default_rng(4)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 23, 100)]
-    new, max_len = 12, 128
-    outs, steps, launches, segments = {}, {}, {}, {}
-    plain = 0
-    for device in ("cpu", "cuda"):
-        model = build_model(cfg, dtype=torch.float32, device=device)
-        eng = _engine_class()(model, _to(params, device), SchedulerConfig(
-            chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
-            max_concurrent_prefills=2), max_len=max_len, device=device)
-        for rid, prompt in enumerate(prompts):
-            eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
+        hybrid = arch.startswith("jamba")
+        cfg = dropless(reduce_config(get_config(arch), periods=1 if hybrid else 2))
+        cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
+        gen = torch.Generator().manual_seed(0)
+        params = cpu_model.init(gen)
+        if hybrid:
+            params = _drawn_leaves(torch, params, gen)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 23, 100)]
+        new, max_len = 12, 128
+        outs, steps, launches, expect, segments = {}, {}, {}, {}, {}
+        plain = 0
+        for device in ("cpu", "cuda"):
+            model = build_model(cfg, dtype=torch.float32, device=device)
+            eng = _engine_class()(model, _to(params, device), SchedulerConfig(
+                chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
+                max_concurrent_prefills=2), max_len=max_len, device=device)
+            for rid, prompt in enumerate(prompts):
+                eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+            reset_counts()
+            plans = []
+            while eng.scheduler.has_work and eng.steps_run < 400:
+                plan = eng.step(now=float(eng.steps_run))
+                if plan is None:
+                    break
+                plans.append(plan)
+            launches[device], p_calls = read_counts()
+            expect[device] = expected_launches(cfg, plans, True, "dense")
+            segments[device] = sum(len(p.prefill_segments) for p in plans)
+            plain += p_calls
+            outs[device] = [eng.scheduler.requests[r].output for r in range(len(prompts))]
+            steps[device] = eng.steps_run
         reset_counts()
-        segments[device] = 0
-        while eng.scheduler.has_work and eng.steps_run < 400:
-            plan = eng.step(now=float(eng.steps_run))
-            if plan is None:
-                break
-            segments[device] += len(plan.prefill_segments)
-        counts, p_calls = read_counts()
-        launches[device] = counts["ssd_chunk_scan"]
+        outs["serial_cuda"] = [serial_reference(model, _to(params, "cuda"), p, new,
+                                                max_len=max_len) for p in prompts]
+        launches["serial_cuda"], p_calls = read_counts()
         plain += p_calls
-        outs[device] = [eng.scheduler.requests[r].output for r in range(len(prompts))]
-        steps[device] = eng.steps_run
-    reset_counts()
-    outs["serial_cuda"] = [serial_reference(model, _to(params, "cuda"), p, new, max_len=max_len)
-                           for p in prompts]
-    counts, p_calls = read_counts()
-    launches["serial_cuda"] = counts["ssd_chunk_scan"]
-    plain += p_calls
-    L = cfg.n_layers
-    rec = dict(phase="reduced_two_call", arch=cfg.name, layers=L, dtype="float32", steps=steps,
-               prefill_segments=segments["cuda"], launches=launches, plain_cuda_calls=plain,
-               engine_card_equals_cpu=outs["cuda"] == outs["cpu"],
-               engine_equals_serial_card=outs["cuda"] == outs["serial_cuda"])
-    rec["ok"] = (rec["engine_card_equals_cpu"] and rec["engine_equals_serial_card"]
-                 and plain == 0 and launches["cpu"] == 0
-                 and launches["cuda"] == L * segments["cuda"]
-                 and launches["serial_cuda"] == L * len(prompts)
-                 and all(len(o) == new for o in outs["cuda"]))
-    emit(rec)
-    if not rec["ok"]:
-        raise AssertionError(f"reduced_two_call: {rec} {outs}")
+        L, n_attn = cfg.n_layers, cfg.n_attn_layers
+        serial_expect = dict(launches["serial_cuda"], flash_attention=n_attn * len(prompts),
+                             decode_attention=n_attn * len(prompts) * (new - 1),
+                             ssd_chunk_scan=0 if hybrid else L * len(prompts))
+        rec = dict(phase="reduced_two_call", arch=cfg.name, layers=L, attn_layers=n_attn,
+                   dtype="float32", steps=steps, prefill_segments=segments["cuda"],
+                   launches=launches, launches_expected=expect["cuda"],
+                   plain_cuda_calls=plain,
+                   engine_card_equals_cpu=outs["cuda"] == outs["cpu"],
+                   engine_equals_serial_card=outs["cuda"] == outs["serial_cuda"])
+        if hybrid:
+            with router_margin(torch) as margin:
+                rec["min_top2_gap"] = min(_serial_gap(torch, cpu_model, params, p, new, max_len)
+                                          for p in prompts)
+            rec["min_router_margin"] = margin[0]
+        rec["ok"] = (rec["engine_card_equals_cpu"] and rec["engine_equals_serial_card"]
+                     and plain == 0 and not any(launches["cpu"].values())
+                     and launches["cuda"] == expect["cuda"]
+                     and launches["serial_cuda"] == serial_expect
+                     and all(len(o) == new for o in outs["cuda"])
+                     and (not hybrid or all(expect["cuda"][k] > 0 for k in
+                                            ("flash_attention", "mixed_paged_attention",
+                                             "decode_attention"))))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"reduced_two_call {arch}: {rec} {outs}")
 
 
 def mamba_engine_check(torch, model, params):
@@ -3334,6 +3654,8 @@ def main() -> int:
     if not rec["ok"]:
         raise AssertionError(f"build: instantiations spill: {rec}")
 
+    from repro_torch.core.packed_step import supports_packed
+
     parity = kernel_parity(torch)
     parity.update(single_query_and_flash_parity(torch))
     parity.update(group_parity(torch))
@@ -3373,9 +3695,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe_layer(torch)
     mla_layer(torch)
+    mamba1_layer(torch)
     for phase, arch, layers, profile in ARCH_SERVES:
         model, params, setup = full_model(torch, arch, layers)
-        arch_runs.append(serve(torch, smi, model, params, setup, phase=phase, profile=profile))
+        # the paged engine where the arch packs; jamba's hybrid the two-call path
+        kernel = "paged" if supports_packed(model.cfg) else "auto"
+        arch_runs.append(serve(torch, smi, model, params, setup, attn_kernel=kernel,
+                               phase=phase, profile=profile))
         del model, params
         torch.cuda.empty_cache()
 
@@ -3383,6 +3709,8 @@ def main() -> int:
     # path's shapes (the first one heads the line); plain-version calls on
     # the card summed over those paths
     paths = {"mixed_paged_attention": (served, ["mixed_bf16", "gemma2_mixed_bf16",
+                                                f"b1_row{WHOLE_ROW}_at512_bf16",
+                                                f"b1_row{WHOLE_ROW}_at2560_bf16",
                                                 "decode16_bf16", "decode_long_bf16",
                                                 "g6_mixed_bf16", "g6_decode16_bf16",
                                                 "g16_mixed_bf16", "g16_decode16_bf16",
@@ -3395,7 +3723,7 @@ def main() -> int:
                                                 "b2_g16_dense_engine_bf16",
                                                 "b2_g16_dense_prefill_bf16"]),
              "decode_attention": (serial_rec, ["b3_serial_bf16", "b3_gemma2_serial_bf16",
-                                               "b3_g6_serial_bf16"]),
+                                               "b3_g6_serial_bf16", "b3_batch_bf16"]),
              "flash_attention": (serial_rec, ["b4_prompt4096_bf16", "b4_prompt1000_bf16",
                                               "b4_gemma2_prompt6000_bf16",
                                               "b4_g6_prompt4096_bf16", "b4_g16_prompt4096_bf16"]),

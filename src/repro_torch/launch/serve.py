@@ -11,9 +11,11 @@ divided by one page's full-stack KV bytes in the pool dtype
 dense-equivalent layout (``max_batch * max_len`` tokens). On the CPU the cap
 is the size. ``--num-kv-blocks`` overrides both. ``--attn-kernel dense``
 serves from a dense ``(max_batch + 1, max_len)`` slot cache instead and
-sizes no pool. An attention-free arch (``--arch mamba2-2.7b``) runs the
-two-call path over a fixed ``(max_batch + 1)``-row state and sizes no pool
-either; the launcher prints the state's bytes. ``--layers N`` keeps an
+sizes no pool. An arch that cannot pack (``--arch mamba2-2.7b``, or the
+hybrid ``jamba-v0.1-52b``) runs the two-call path over a fixed ``(max_batch
++ 1)``-row state and sizes no pool either, as the JAX launcher sizes one
+only where ``supports_packed`` holds; the launcher prints the state's bytes,
+a hybrid's dense K/V rows included. ``--layers N`` keeps an
 arch's published widths and runs its first N layers, for a model whose
 weights outgrow the card (llama3.1-70b: 141 GB in bf16). The flags mirror
 the JAX launcher's: ``--preemption swap`` parks preempted KV in pinned host
@@ -35,6 +37,7 @@ import torch
 
 from repro_torch.configs import get_config, reduce_config
 from repro_torch.configs.reduced import dropless
+from repro_torch.core.packed_step import supports_packed
 from repro_torch.core.scheduler import SchedulerConfig
 from repro_torch.models import build_model
 from repro_torch.models.model import page_leaves
@@ -90,6 +93,21 @@ def sized_kv_pool(cfg, device: torch.device, dtype: torch.dtype, max_batch: int,
     if budget < dense_equiv:
         return budget, "free_memory"
     return dense_equiv, "dense"
+
+
+def pool_plan(cfg, device: torch.device, dtype: torch.dtype, args):
+    """(num_kv_blocks, basis) the scheduler gets: ``--num-kv-blocks`` if
+    given; else a pool sized by ``sized_kv_pool`` only where the arch packs
+    (``supports_packed``, as the JAX launcher asks) and ``--attn-kernel`` is
+    not ``dense``; else None, over a two-call arch's fixed state or the
+    dense slot cache."""
+    if args.num_kv_blocks is not None:
+        return args.num_kv_blocks, "flag"
+    if not supports_packed(cfg):
+        return None, "two-call state"  # a fixed state per slot, a hybrid's KV rows too
+    if args.attn_kernel == "dense":
+        return None, "dense slot cache"
+    return sized_kv_pool(cfg, device, dtype, args.max_batch, args.max_len, args.kv_block)
 
 
 def main():
@@ -168,14 +186,7 @@ def main():
     model = build_model(cfg, dtype=dtype, device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
 
-    pool, pool_basis = args.num_kv_blocks, "flag"
-    if pool is None and not cfg.n_attn_layers:
-        pool_basis = "two-call state"  # no KV: a fixed state per slot
-    elif pool is None and args.attn_kernel == "dense":
-        pool_basis = "dense slot cache"
-    elif pool is None:
-        pool, pool_basis = sized_kv_pool(cfg, device, dtype, args.max_batch, args.max_len,
-                                         args.kv_block)
+    pool, pool_basis = pool_plan(cfg, device, dtype, args)
     fault_plan = None
     if args.fault_plan:
         from repro_torch.robustness import FaultPlan

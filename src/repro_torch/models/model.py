@@ -2,24 +2,24 @@
 and the KV page pool.
 
 The PyTorch counterpart of the JAX package's ``Model`` for the archs the
-port serves so far (GQA, MLA and Mamba2 mixers; dense FFNs, MoE FFNs or
-none; no Mamba1/enc-dec). The parameter tree follows ``Model.init`` /
-``stack.layer_init`` / ``attention.attn_init`` / ``mamba.mamba2_init`` /
+port serves so far (GQA, MLA, Mamba2 and Mamba1 mixers, alone or
+interleaved as in jamba; dense FFNs, MoE FFNs or none; no enc-dec). The
+parameter tree follows ``Model.init`` / ``stack.layer_init`` /
+``attention.attn_init`` / ``mamba.mamba2_init`` / ``mamba.mamba1_init`` /
 ``moe.moe_init`` key for key, except that layers are a Python list in layer
 order where JAX stacks them over scan periods.
 
 The serial path is JAX's: ``forward`` (one-shot causal), ``init_cache``,
 ``prefill`` and ``decode_step`` over per-layer caches (a dense ``(B,
 max_len, KV, d)`` KV cache for GQA attention, MLA's ``(B, max_len, .)``
-latent, the conv and SSM state for Mamba2), which they update in place and
-return. ``index`` is an int (one
-offset for every row) or a ``(B,)`` tensor (one per row). ``loss`` waits for
-training.
+latent, the conv and SSM state for Mamba2 and Mamba1), which they update in
+place and return. ``index`` is an int (one offset for every row) or a
+``(B,)`` tensor (one per row). ``loss`` waits for training.
 
 Parameters live on the model's device in the model's dtype (JAX keeps fp32
 masters and casts at use; serving has no optimizer, so the port stores what
-it computes with), except Mamba2's ``mamba.FP32_LEAVES``, which JAX uses in
-fp32.
+it computes with), except the Mamba mixers' ``mamba.FP32_LEAVES``, which JAX
+uses in fp32.
 """
 from __future__ import annotations
 
@@ -46,7 +46,7 @@ from repro_torch.models.layers import (
     softcap,
     truncated_normal,
 )
-from repro_torch.models.mamba import mamba2_init
+from repro_torch.models.mamba import mamba1_init, mamba2_init
 from repro_torch.models.moe import moe_init
 
 
@@ -56,9 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder models (models/encdec.py, whisper-small) are not "
             "ported yet (ROADMAP.md A9)")
-    if any(s.mixer not in ("attn", "mamba2") for s in cfg.layer_specs):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba1 mixers (jamba-v0.1-52b) are not ported yet (ROADMAP.md A9)")
     if cfg.learned_pos or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: learned positions / frontends are not ported yet")
@@ -85,7 +82,7 @@ def page_leaves(cfg: ModelConfig, page_size: int) -> dict:
 def _layer_init(cfg: ModelConfig, spec, *, generator, dtype, device):
     kw = dict(generator=generator, dtype=dtype, device=device)
     d = cfg.d_model
-    init = attn_init if spec.mixer == "attn" else mamba2_init
+    init = {"attn": attn_init, "mamba2": mamba2_init, "mamba1": mamba1_init}[spec.mixer]
     p = {"norm1": rms_norm_init(d, dtype=dtype, device=device), "mixer": init(cfg, **kw)}
     if cfg.post_norm:
         p["post_norm1"] = rms_norm_init(d, dtype=dtype, device=device)
@@ -163,7 +160,7 @@ class Model:
         """Zeroed per-layer caches: a dense KV cache ``{"k", "v"}`` of (batch,
         max_len, KV, d) (MLA: the latent ``{"ckv", "krope"}`` of (batch,
         max_len, .)) in ``dtype`` (default: the model's) per attention
-        layer, an fp32 ``{"conv", "ssm"}`` state per Mamba2 layer."""
+        layer, an fp32 ``{"conv", "ssm"}`` state per Mamba2 or Mamba1 layer."""
         return stack.stack_cache_init(self.cfg, batch, max_len,
                                       dtype=dtype if dtype is not None else self.dtype,
                                       device=self.device)

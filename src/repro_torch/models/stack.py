@@ -1,8 +1,8 @@
 """The decoder stack of the serial execution path.
 
 The PyTorch counterpart of the JAX package's ``models/stack.py`` for
-attention (GQA or MLA) and Mamba2 mixers, with dense FFNs, MoE FFNs (whose auxiliary
-loss is dropped until training needs it) or none. JAX stacks each period
+attention (GQA or MLA), Mamba2 and Mamba1 mixers, with dense FFNs, MoE FFNs
+(whose auxiliary loss is dropped until training needs it) or none. JAX stacks each period
 position's parameters and caches over periods and walks them with
 ``lax.scan``; the port keeps one entry per layer in layer order
 (``Model.init``'s ``"layers"``, and the per-layer cache list below) and walks
@@ -17,19 +17,26 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models.attention import CacheCall, attn_apply, kv_cache_init
 from repro_torch.models.layers import ffn, rms_norm
-from repro_torch.models.mamba import mamba2_apply, mamba2_state_init
+from repro_torch.models.mamba import (
+    mamba1_apply,
+    mamba1_state_init,
+    mamba2_apply,
+    mamba2_state_init,
+)
 from repro_torch.models.moe import moe_apply
 
 
 def layer_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int, *,
                      dtype: torch.dtype, device) -> dict:
-    """Attention: a dense KV cache (MLA: its latent) in ``dtype``; Mamba2:
-    its fp32 state (as in JAX, whatever ``dtype``)."""
+    """Attention: a dense KV cache (MLA: its latent) in ``dtype``; Mamba2
+    and Mamba1: the fp32 state (as in JAX, whatever ``dtype``)."""
     if spec.mixer == "attn":
         return kv_cache_init(cfg, batch, max_len, dtype=dtype, device=device)
     if spec.mixer == "mamba2":
         return mamba2_state_init(cfg, batch, device=device)
-    raise NotImplementedError(f"{spec.mixer} state caches are not ported yet (ROADMAP.md A9)")
+    if spec.mixer == "mamba1":
+        return mamba1_state_init(cfg, batch, device=device)
+    raise ValueError(spec.mixer)
 
 
 def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, h, angles, *, cache=None,
@@ -41,7 +48,7 @@ def layer_apply(p, cfg: ModelConfig, spec: LayerSpec, h, angles, *, cache=None,
     elif spec.mixer == "mamba2":
         y, cache = mamba2_apply(p["mixer"], cfg, hn, state=cache)
     else:
-        raise NotImplementedError(f"{spec.mixer} mixers are not ported yet (ROADMAP.md A9)")
+        y, cache = mamba1_apply(p["mixer"], cfg, hn, state=cache)
     if cfg.post_norm:
         y = rms_norm(p["post_norm1"], y, cfg.norm_eps)
     h = h + y
@@ -63,7 +70,7 @@ def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, dtype: torch
                      device) -> List[dict]:
     """One zeroed cache per layer: ``{"k", "v"}`` of (batch, max_len, KV, d)
     for GQA attention, ``{"ckv", "krope"}`` of (batch, max_len, .) for MLA,
-    ``{"conv", "ssm"}`` for Mamba2."""
+    ``{"conv", "ssm"}`` for Mamba2 and Mamba1."""
     return [layer_cache_init(cfg, spec, batch, max_len, dtype=dtype, device=device)
             for spec in cfg.layer_specs]
 

@@ -23,12 +23,16 @@ which an eager step does not need, and padding rows would cost a decode-only
 step the matmuls of a full chunk. Segments and table columns keep the JAX
 engine's pow2 padding; zero-width segments and unused columns cost nothing.
 
-Archs that cannot pack (Mamba2 here; JAX also Mamba1 hybrids and
+Archs that cannot pack (Mamba2, and jamba's Mamba1 hybrid; JAX also
 enc-dec) run JAX's two-call path instead (``_run_two_call``): one
 ``Model.decode_step`` over the step's decode slots, then one
 ``Model.prefill`` per packed prefill segment, each over its slot's state in
-``model.init_cache(n_slots + 1, max_len)``. They have no page pool and no
-block mirror.
+``model.init_cache(n_slots + 1, max_len)``: a Mamba layer's ``{conv, ssm}``
+rows, a hybrid's attention layer's dense ``(max_len, KV, d)`` K/V rows. The
+decode call works on the decode slots' rows in place when they are
+contiguous slots, and otherwise on a gathered copy of them that it writes
+back (``decode_gather_bytes`` counts what that copies). They have no page
+pool and no block mirror.
 
 Swap preemption parks a victim's KV in host memory (``swap_store``): in paged
 mode only the record's spilled (private) pages, which a swap-in scatters into
@@ -58,7 +62,7 @@ async prefetch on or off. On the CPU the same code runs without streams,
 events or pinning, chosen by the engine's ``device``.
 
 Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the archs ``Model`` does not build (Mamba1, enc-dec).
+item: the archs ``Model`` does not build (enc-dec).
 """
 from __future__ import annotations
 
@@ -200,6 +204,9 @@ class Engine:
         # None, or a list the engine appends a record to for every swap
         # copy and every step's kernel window, with CUDA events (card only)
         self.copy_log: Optional[list] = None
+        # two-call: bytes the decode call's gather of non-contiguous decode
+        # slots copied, out of the cache and back into it
+        self.decode_gather_bytes = 0
 
         if attn_kernel == "paged":
             # B1's q-tiles group G query heads a KV head; MLA runs no kernel
@@ -738,25 +745,34 @@ class Engine:
         """JAX's two-call step: one decode call over the decode slots, then
         one prefill call per segment. JAX decodes every slot row and keeps
         the old state of rows that are not decoding (``_mask_tree``); rows
-        are independent, so the port decodes only the decoding slots'
-        states, gathered, and writes them back. A prefill runs on views of
-        its slot's state, which it updates in place. Returns the (requests,
-        logits rows) to sample."""
+        are independent, so the port decodes only the decoding slots' rows,
+        in slot order: in place on a slice of the cache when those slots are
+        contiguous, else on a gathered copy that it writes back. A prefill
+        runs on views of its slot's rows, which it updates in place. Returns
+        the (requests, logits rows) to sample."""
         sch = self.scheduler
         dev = self.device
         pending = []
         if plan.decode_slots:
-            reqs = [sch.requests[rid] for rid in plan.decode_rids]
+            order = sorted(range(len(plan.decode_slots)), key=lambda i: plan.decode_slots[i])
+            slot_list = [plan.decode_slots[i] for i in order]
+            reqs = [sch.requests[plan.decode_rids[i]] for i in order]
             meta = torch.from_numpy(np.asarray(
-                [list(plan.decode_slots), [r.output[-1] for r in reqs],
+                [slot_list, [r.output[-1] for r in reqs],
                  [r.next_decode_pos for r in reqs]], np.int64)).to(dev)
             slots, tokens, index = meta[0], meta[1, :, None].to(torch.int32), meta[2]
-            sub = [{k: v.index_select(0, slots) for k, v in layer.items()}
-                   for layer in self.cache]
-            logits, sub = self.model.decode_step(self.params, tokens, sub, index)
-            for layer, part in zip(self.cache, sub):
-                for k, v in layer.items():
-                    v.index_copy_(0, slots, part[k])
+            lo, n = slot_list[0], len(slot_list)
+            if slot_list[-1] - lo == n - 1:  # contiguous: the cache's own rows
+                sub = [{k: v[lo:lo + n] for k, v in layer.items()} for layer in self.cache]
+                logits, _ = self.model.decode_step(self.params, tokens, sub, index)
+            else:
+                sub = [{k: v.index_select(0, slots) for k, v in layer.items()}
+                       for layer in self.cache]
+                logits, sub = self.model.decode_step(self.params, tokens, sub, index)
+                for layer, part in zip(self.cache, sub):
+                    for k, v in layer.items():
+                        v.index_copy_(0, slots, part[k])
+                        self.decode_gather_bytes += 2 * part[k].numel() * part[k].element_size()
             pending.append((reqs, logits))
 
         for seg in plan.prefill_segments:

@@ -46,8 +46,10 @@ def from_jax_params(tree, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"
     """``Model.init``'s parameter pytree (as numpy) -> the port's params, in
     ``dtype`` except the leaves JAX uses in fp32 (``mamba.FP32_LEAVES``).
     Every mixer's leaves cross by name: GQA's, MLA's (``q_down``,
-    ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``, ``kv_up``, ``wo``) and
-    Mamba2's."""
+    ``q_norm``, ``q_up``, ``kv_down``, ``kv_norm``, ``kv_up``, ``wo``),
+    Mamba2's and Mamba1's (``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``,
+    ``dt_proj`` with its bias, ``A_log``, ``D``, ``out_proj``), at any scan
+    period (jamba's is 8)."""
     cast, f32 = _tensor(dtype, device), _tensor(torch.float32, device)
 
     def conv(a, key):
@@ -70,8 +72,8 @@ def caches_from_jax(cache, cfg: ModelConfig, *, dtype=torch.float32, device="cpu
     paged engine's pool (leaves ``(pages, page, KV, d)``; MLA's ``{"ckv",
     "krope"}`` of ``(pages, page, .)``), the dense cache of
     ``Model.init_cache`` (``{"k","v"}`` of ``(batch, max_len, KV, d)``;
-    MLA's latent of ``(batch, max_len, .)``) in ``dtype``, and Mamba2's
-    ``{"conv", "ssm"}`` state, which stays fp32 as JAX keeps it."""
+    MLA's latent of ``(batch, max_len, .)``) in ``dtype``, and the Mamba
+    layers' ``{"conv", "ssm"}`` state, which stays fp32 as JAX keeps it."""
     cast, f32 = _tensor(dtype, device), _tensor(torch.float32, device)
 
     def conv(a, key):

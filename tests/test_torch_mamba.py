@@ -14,8 +14,9 @@ unless a test says otherwise.
 * greedy tokens of the two-call ``Engine`` equal to the JAX ``Engine``'s on
   the two mamba2-2.7b workloads of ``test_engine.py`` and to the port's
   serial path;
-* configs whose model path is not ported (Mamba1, enc-dec) raise, naming
-  their ROADMAP item.
+* configs whose model path is not ported (enc-dec) raise, naming their
+  ROADMAP item (Mamba1, which jamba runs, has its own tests in
+  ``test_torch_mamba1.py`` and ``test_torch_jamba_engine.py``).
 """
 from __future__ import annotations
 
@@ -294,8 +295,7 @@ def _port_config(arch):
     return ModelConfig(**kw)
 
 
-@pytest.mark.parametrize("arch,names", [("jamba-v0.1-52b", "Mamba1"),
-                                        ("whisper-small", "encoder-decoder")])
+@pytest.mark.parametrize("arch,names", [("whisper-small", "encoder-decoder")])
 def test_unported_archs_raise_naming_their_roadmap_item(arch, names):
     with pytest.raises(NotImplementedError, match=rf"{names}.*ROADMAP\.md A9"):
         build_model(_port_config(arch), device="cpu")
