@@ -45,7 +45,16 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   g8_kv4). B1 as the two-call engine calls it for jamba's
                   later chunks (b1_row8192_at*): a 512-row chunk at offsets
                   512 and 2560 over a slot's whole row, one page of 8192
-                  tokens, a (1, 1) table. B5's scratch (b5_scratch_checks): one call
+                  tokens, a (1, 1) table. whisper-small's attention
+                  (whisper_parity: 12 heads over 12 KV heads, G 1, d 64,
+                  bf16): B4 without the causal mask over 1500 encoder keys
+                  (the encoder's 1500 frames, a 224-token prompt's
+                  cross-attention; the keys past 1500 NaN, and the plain
+                  version with the keys above the diagonal masked must
+                  fail), B3 over 1500 keys a row (a decode step's
+                  cross-attention) and at 4-448 of 448 (its
+                  self-attention), B1 over a slot's 448-token row. B5's
+                  scratch (b5_scratch_checks): one call
                   captured in a CUDA graph and replayed twice on new inputs,
                   bit-equal to eager, its epoch word moved on by one a
                   replay; a call on a second stream on a scratch of its own;
@@ -62,11 +71,14 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
   reduced_serial  reduced width, fp32, on the card: serial per-request prefill +
                   decode (B4, B3), the paged engine (B1) and the dense engine (B2)
                   give the same greedy tokens, and the CPU's serial run too
-  reduced_two_call reduced mamba2-2.7b and reduced jamba-v0.1-52b (Mamba1,
-                  attention on one layer of 8, MoE) in fp32: the two-call
-                  engine on the card (B5; jamba's attention B4, B1 and B3)
-                  and on the CPU and the serial path on the card give the
-                  same greedy tokens, each kernel launched as the plans say
+  reduced_two_call reduced mamba2-2.7b, reduced jamba-v0.1-52b (Mamba1,
+                  attention on one layer of 8, MoE) and reduced
+                  whisper-small (2 + 2 layers, seeded frames) in fp32: the
+                  two-call engine on the card (B5; jamba's attention B4,
+                  B1 and B3; whisper's encoder and cross-attention B4 and
+                  B3 too) and on the CPU and the serial path on the card
+                  give the same greedy tokens, each kernel launched as the
+                  plans say
   reduced_archs   gemma2-2b, qwen2-1.5b, chatglm3-6b, qwen3-32b, llama3.1-70b
                   and qwen3-moe-30b-a3b (MoE, dropless) at reduced widths with
                   their published GQA groups (G 2, 6, 16, 8, 8, 8), and
@@ -161,6 +173,21 @@ CUDA toolkit; it needs no network. Phases, each printing JSON lines:
                   decode call's gather of the decode slots' K/V rows
                   counted; qwen3-moe, deepseek and jamba then a profiled
                   window
+  serve_whisper   whisper-small at its published widths and depth (12
+                  encoder + 12 decoder layers), bf16, through the two-call
+                  engine on WHISPER_SERVE: 8 requests with 1500 seeded
+                  frame embeddings each, prompts of 4-224 tokens, 96 new
+                  tokens, max_len 448: launches against expected_launches,
+                  the state's self and cross K/V rows, the engine's tokens
+                  against serial_tokens on the card for every request; then
+                  a profiled window (serve_whisper_profile)
+  serial_internvl2
+                  internvl2-76b's backbone at 32 of its 80 layers on
+                  serve_llama70b's weights (the trees held key for key
+                  first): 2 requests of 256 seeded frontend embeddings and
+                  a 1024-token prompt, 16 tokens each through serial_tokens
+                  (B4, B3), equal to the argmax of one forward over
+                  [embeddings; prompt; tokens]
 
 then the kernels line (each kernel's launches on its main path and on every
 path that ran it, ``launches_by_path``), the card's name and power limit as
@@ -245,6 +272,16 @@ MAMBA1_STATE_RMS = 2.0**-7
 # a 512-token chunk at these offsets, as jamba's later prefill chunks run it
 WHOLE_ROW = 8192
 WHOLE_ROW_CHUNKS = (512, 2560)
+# whisper-small at its published widths and depth (12 + 12 layers): 8
+# requests, each with 1500 frame embeddings (std 1, seeded), prompts of 4-224
+# tokens (its start-of-transcript tokens up to its 224-token previous-text
+# prompt), 96 new tokens; max_len 448 (its decoder's context)
+WHISPER_SERVE = dict(requests=8, prompt_lo=4, prompt_hi=224, max_new=96, chunk=512,
+                     max_batch=8, max_prefills=2, page=16, max_len=448)
+# internvl2-76b's backbone at 32 of its 80 layers on serve_llama70b's
+# weights: 2 requests of 256 frontend embeddings and a 1024-token prompt,
+# 16 new tokens each, served serially
+INTERNVL2_SERIAL = dict(requests=2, prompt=1024, max_new=16, layers=32, max_len=2048)
 # every kernel of the port: its source and the TPU kernel it replaces
 KERNELS = {
     "mixed_paged_attention": ("src/repro_torch/kernels/csrc/mixed_paged_attention.cu",
@@ -810,19 +847,19 @@ def kernel_parity(torch):
     return recs
 
 
-def whole_row_case(torch, seed, start, length):
+def whole_row_case(torch, seed, start, length, kv=8, g=4, d=128, page=WHOLE_ROW):
     """B1's inputs as ``attention.cache_call`` builds them for a chunk of one
     two-call slot: ``length`` rows at ``start``, one segment, the slot's row
-    one page of ``WHOLE_ROW`` tokens, a (1, 1) table, no padding rows or
-    segments; jamba's heads (KV 8, G 4, d 128), bf16, every key past the
-    chunk's last NaN."""
+    one page of ``page`` tokens, a (1, 1) table, no padding rows or
+    segments; jamba's heads (KV 8, G 4, d 128) unless given, bf16, every key
+    past the chunk's last NaN."""
     from repro_torch.kernels.paged_attention import q_tiles
 
-    case = make_case(torch, seed, [(length, start + length)], kv=8, g=4, d=128,
-                     page=WHOLE_ROW, dtype=torch.bfloat16, pad_rows=0)
+    case = make_case(torch, seed, [(length, start + length)], kv=kv, g=g, d=d,
+                     page=page, dtype=torch.bfloat16, pad_rows=0)
     cu = case["cu"][:2]
     case.update(cu=cu, kv_lens=case["kv_lens"][:1], tables=case["tables"][:1],
-                tiles=torch.from_numpy(q_tiles(cu.cpu().numpy(), 4)).to("cuda"))
+                tiles=torch.from_numpy(q_tiles(cu.cpu().numpy(), g)).to("cuda"))
     return case
 
 
@@ -1125,36 +1162,42 @@ def b3_graph_replay(torch):
 
 
 def flash_case(torch, seed, B, S, *, kv, g, d, dtype, window=None, softcap=None, cache=None,
-               q_scale=1.0):
-    """Prompts of S tokens over themselves. K/V are the first S rows of a
-    (B, cache, KV, d) cache whose other rows hold NaN, read through the view's
-    strides as the serial prefill reads them; queries scaled by ``q_scale``."""
+               q_scale=1.0, sk=None, causal=True):
+    """Prompts of S tokens over themselves, or (``sk``) over keys of their
+    own, ``sk`` of them. K/V are the first S (or ``sk``) rows of a (B,
+    cache, KV, d) cache whose other rows hold NaN, read through the view's
+    strides as the serial prefill reads them; queries scaled by
+    ``q_scale``. ``causal`` False: every query reads every key."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    cache = cache or S
+    sk = sk or S
+    cache = cache or sk
     q = q_scale * torch.randn((B, S, kv * g, d), generator=gen, device="cuda")
     kc = torch.full((B, cache, kv, d), float("nan"), device="cuda")
     vc = kc.clone()
-    kc[:, :S] = torch.randn((B, S, kv, d), generator=gen, device="cuda")
-    vc[:, :S] = torch.randn((B, S, kv, d), generator=gen, device="cuda")
+    kc[:, :sk] = torch.randn((B, sk, kv, d), generator=gen, device="cuda")
+    vc[:, :sk] = torch.randn((B, sk, kv, d), generator=gen, device="cuda")
     kc, vc = kc.to(dtype), vc.to(dtype)
-    return dict(q=q.to(dtype), k=kc[:, :S], v=vc[:, :S], window=window, softcap=softcap,
-                cache=cache)
+    return dict(q=q.to(dtype), k=kc[:, :sk], v=vc[:, :sk], window=window, softcap=softcap,
+                cache=cache, causal=causal)
 
 
 def flash_work(case):
     B, S, H, d = case["q"].shape
-    kv = case["k"].shape[2]
+    sk, kv = case["k"].shape[1:3]
     elem = case["q"].element_size()
     w = case["window"]
-    pairs = sum(i + 1 if w is None else min(i + 1, w) for i in range(S))
-    nbytes = (2 * B * S * H * d + 2 * B * S * kv * d) * elem
+    if case["causal"]:
+        pairs = sum(i + 1 if w is None else min(i + 1, w) for i in range(S))
+    else:
+        pairs = S * sk
+    nbytes = (2 * B * S * H * d + 2 * B * sk * kv * d) * elem
     return nbytes, 4 * B * H * d * pairs
 
 
 def flash_library(torch, case):
     """``scaled_dot_product_attention`` on the same prompts, K/V expanded to
-    the query heads (outside the timed call); causal, or a boolean mask for
-    a window; no softcap."""
+    the query heads (outside the timed call); causal, full, or a boolean
+    mask for a window; no softcap."""
     import torch.nn.functional as F
 
     q, k, v, w = case["q"], case["k"], case["v"], case["window"]
@@ -1170,23 +1213,28 @@ def flash_library(torch, case):
 
     def call():
         if mask is None:
-            return F.scaled_dot_product_attention(qb, kb, vb, is_causal=True)
+            return F.scaled_dot_product_attention(qb, kb, vb, is_causal=case["causal"])
         return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask)
 
     return call, lambda o: o.transpose(1, 2)
 
 
 def run_flash_case(torch, name, case):
+    """One B4 case against its plain version (fp32, same inputs), the
+    faults the check must reject (softcap or window dropped; for a
+    non-causal case the keys above the diagonal masked, ``causal``), times
+    beside the bound and SDPA."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
 
     dtype = str(case["q"].dtype).replace("torch.", "")
-    w, cap = case["window"], case["softcap"]
+    w, cap, causal = case["window"], case["softcap"], case["causal"]
     q, k, v = case["q"], case["k"], case["v"]
     B, S, H, d = q.shape
     rows = lambda o: o.reshape(B * S, H, d, 1)  # noqa: E731  (a token's heads are a row)
-    call = lambda **kw: flash_attention(q, k, v, **kw)  # noqa: E731
-    plain = lambda **kw: flash_attention_ref(q.float(), k.float(), v.float(), **kw)  # noqa: E731
+    call = lambda **kw: flash_attention(q, k, v, causal=causal, **kw)  # noqa: E731
+    plain = lambda causal=causal, **kw: flash_attention_ref(  # noqa: E731
+        q.float(), k.float(), v.float(), causal=causal, **kw)
     got = call(window=w, softcap=cap)
     torch.cuda.synchronize()
     expect = rows(plain(window=w, softcap=cap))
@@ -1195,9 +1243,11 @@ def run_flash_case(torch, name, case):
         faults["no_softcap"] = rows(plain(window=w))
     if w is not None:
         faults["no_window"] = rows(plain(softcap=cap))
+    if not causal:
+        faults["causal"] = rows(plain(causal=True, window=w, softcap=cap))
     rec = parity_record(torch, name, "flash_attention", dtype, rows(got), expect, faults,
-                        dict(batch=B, seq=S, kv=k.shape[2], g=H // k.shape[2], d=d,
-                             cache=case["cache"], window=w, softcap=cap))
+                        dict(batch=B, seq=S, keys=k.shape[1], kv=k.shape[2], g=H // k.shape[2],
+                             d=d, cache=case["cache"], window=w, softcap=cap, causal=causal))
     nbytes, flops = flash_work(case)
     b, by = bound_of(nbytes, flops, dtype)
     lib, to_rows = flash_library(torch, case)
@@ -1205,7 +1255,7 @@ def run_flash_case(torch, name, case):
                          lambda: plain(window=w, softcap=cap), lib, reps=10),
                bound_ms=b, bound_by=by, bytes=nbytes, flops=flops,
                library="torch.nn.functional.scaled_dot_product_attention (K/V expanded "
-                       "to the query heads, causal or window mask, no softcap)",
+                       "to the query heads, causal, full or window mask, no softcap)",
                library_max_abs_err=float((rows(to_rows(lib())).float() - expect)
                                          .abs().max()))
     return finish(rec)
@@ -1391,6 +1441,40 @@ def group_parity(torch):
 # ---------------------------------------------------------------------------
 # kernel_parity: B5 ssd_chunk_scan
 # ---------------------------------------------------------------------------
+
+
+def whisper_parity(torch):
+    """B4, B3 and B1 at whisper-small's attention (12 query heads over 12 KV
+    heads: G 1, d 64), bf16, at the shapes its serving path gives them. B4
+    with ``causal`` off (every query reads every key): the encoder, 1500
+    frames over themselves, and a 224-token prompt's cross-attention over
+    the 1500 encoder keys; the keys are a view of a 1536-row buffer whose
+    rows past 1500 hold NaN (1500 is no multiple of a key tile, so the last
+    tile's mask and the TMA box's tail bound the read), and the plain
+    version with the keys above the diagonal masked (``causal``) must fail.
+    B3: a decode step's cross-attention (8 rows, every row all 1500 keys)
+    and its self-attention (8 rows at 4-448 of 448). B1: a later prompt
+    chunk's self-attention as the two-call engine calls it, 128 rows at 128
+    over the slot's row as one 448-token page."""
+    import numpy as np
+
+    mha = dict(kv=12, g=1, d=64, dtype=torch.bfloat16)
+    frames = 1500
+    recs = {}
+    for i, (name, S) in enumerate((("b4_whisper_encoder", frames), ("b4_whisper_cross", 224))):
+        case = flash_case(torch, 300 + i, 1, S, sk=frames, cache=1536, causal=False, **mha)
+        recs[name] = run_flash_case(torch, name, case)
+        del case
+    rows = [("b3_whisper_cross", [frames] * 8, dict(mha, cap=frames)),
+            ("b3_whisper_self", [int(x) for x in np.linspace(4, 448, 8)], dict(mha, cap=448))]
+    for i, (name, lengths, kw) in enumerate(rows):
+        case = row_case(torch, 310 + i, lengths, **kw)
+        recs[name] = run_row_case(torch, name, case)
+        del case
+    case = whole_row_case(torch, 320, 128, 128, kv=12, g=1, d=64, page=448)
+    recs["b1_whisper_row"] = run_case(torch, "b1_whisper_row", case)
+    torch.cuda.empty_cache()
+    return recs
 
 
 def ssd_case(torch, seed, B, S, *, nh, hd, G, ds, dtype, mamba_decay=True, dt_top=False):
@@ -1826,13 +1910,13 @@ ALL_PATHS = ("gemma2-2b", "qwen3-moe-30b-a3b", "deepseek-v2-236b")
 
 
 def _drawn_leaves(torch, tree, gen):
-    """The parameters with every bias drawn from N(0, 0.5^2) and every norm
-    scale from 1 + N(0, 0.3^2) (the init makes zeros and ones, which would
-    hide a leaf that the path dropped), and every MoE router from N(0,
-    1/d_model) (the init's std of 0.02 puts its top-k choices within 1e-5 of
-    a tie)."""
+    """The parameters with every bias (a LayerNorm's too) drawn from N(0,
+    0.5^2) and every norm scale from 1 + N(0, 0.3^2) (the init makes zeros
+    and ones, which would hide a leaf that the path dropped), and every MoE
+    router from N(0, 1/d_model) (the init's std of 0.02 puts its top-k
+    choices within 1e-5 of a tie)."""
     if isinstance(tree, dict):
-        return {k: (0.5 * torch.randn(v.shape, generator=gen) if k == "b" else
+        return {k: (0.5 * torch.randn(v.shape, generator=gen) if k in ("b", "bias") else
                     1 + 0.3 * torch.randn(v.shape, generator=gen) if k == "scale" else
                     {"w": torch.randn(v["w"].shape, generator=gen) * v["w"].shape[0] ** -0.5}
                     if k == "router" else _drawn_leaves(torch, v, gen))
@@ -1866,16 +1950,19 @@ def router_margin(torch):
         margin.append(min(seen, default=float("inf")))
 
 
-def _serial_gap(torch, model, params, prompt, n_new, max_len):
-    """The smallest top-2 logit gap over a prompt's greedy serial steps."""
+def _serial_gap(torch, model, params, prompt, n_new, max_len, frames=None):
+    """The smallest top-2 logit gap over a prompt's greedy serial steps
+    (an enc-dec request's over its ``frames``)."""
     cache = model.init_cache(1, max_len)
-    logits, _ = model.prefill(params, {"tokens": torch.tensor([prompt], dtype=torch.int32)},
-                              cache, 0)
+    batch = {"tokens": torch.tensor([prompt], dtype=torch.int32, device=model.device)}
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device=model.device)[None]
+    logits, _ = model.prefill(params, batch, cache, 0)
     gaps = []
     for i in range(n_new):
         top = torch.topk(logits[0], 2).values
         gaps.append(float(top[0] - top[1]))
-        tok = torch.tensor([[int(logits[0].argmax())]], dtype=torch.int32)
+        tok = torch.tensor([[int(logits[0].argmax())]], dtype=torch.int32, device=model.device)
         if i < n_new - 1:
             logits, _ = model.decode_step(params, tok, cache, len(prompt) + i)
     return min(gaps)
@@ -2506,14 +2593,15 @@ def read_counts():
 
 
 def serve_engine(torch, model, params, attn_kernel, c=SERVE, sched=None, prompts=None,
-                 engine_cls=None):
+                 engine_cls=None, frames=None):
     """An engine with a workload's settings and requests submitted (SERVE's
     by default):
     ``paged`` over a page pool sized by the launcher's rule, ``dense`` over
     a slot cache (for Mamba2, the two-call path over its fixed state).
     ``sched`` adds scheduler settings (swap, the prefix cache), ``prompts``
-    replaces the workload's prompts and ``engine_cls`` the engine class.
-    Returns (engine, pool pages, pool basis, prompt lengths)."""
+    replaces the workload's prompts, ``engine_cls`` the engine class and
+    ``frames`` gives each request its frame embeddings (enc-dec). Returns
+    (engine, pool pages, pool basis, prompt lengths)."""
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.launch.serve import sized_kv_pool
     from repro_torch.serving.request import Request
@@ -2533,7 +2621,8 @@ def serve_engine(torch, model, params, attn_kernel, c=SERVE, sched=None, prompts
         device=dev)
     prompts = prompts or serve_prompts(cfg.vocab_size, c)
     for rid, prompt in enumerate(prompts):
-        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=c["max_new"]))
+        eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=c["max_new"],
+                           frames=None if frames is None else frames[rid]))
     return eng, pool, basis, [len(p) for p in prompts]
 
 
@@ -2597,7 +2686,8 @@ def dense_engine_check(torch, model, params, c=SERVE, phase="serve_dense_check")
 
 
 def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=None,
-          profile=True, sched=None, prompts=None, engine_cls=None, extra=None):
+          profile=True, sched=None, prompts=None, engine_cls=None, extra=None, frames=None,
+          profile_lens=(2048, 1024)):
     """A workload (SERVE's by default) through the engine: ``paged`` (B1,
     the main path; then a profiled window) or ``dense`` (B2, the dense
     fallback) for an attention arch; for an arch that cannot pack
@@ -2607,16 +2697,17 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
     equal ``expected_launches`` of the run's plans.
     ``phase`` names the record (default: serve, serve_dense or
     serve_mamba); ``profile`` False skips the profiled window. ``sched``,
-    ``prompts`` and ``engine_cls`` go to ``serve_engine``; ``extra(eng,
-    step_ms)``, after the timed run, returns more of the record, whose
-    ``a5_ok`` the run must also pass."""
+    ``prompts``, ``engine_cls`` and ``frames`` go to ``serve_engine``;
+    ``extra(eng, step_ms)``, after the timed run, returns more of the
+    record, whose ``a5_ok`` and ``extra_ok`` the run must also pass.
+    ``profile_lens`` are the profiled window's prompt lengths."""
     import numpy as np
 
     from repro_torch.serving.request import State
 
     cfg = model.cfg
     eng, pool, basis, lens = serve_engine(torch, model, params, attn_kernel, c, sched, prompts,
-                                          engine_cls)
+                                          engine_cls, frames)
     if eng.two_call:
         default = "serve_mamba"
     elif attn_kernel == "paged":
@@ -2694,23 +2785,28 @@ def serve(torch, smi, model, params, setup, attn_kernel="paged", c=SERVE, phase=
                    decode_calls_gathered=sum(r[-1] - r[0] != len(r) - 1 for r in runs),
                    decode_gather_bytes=eng.decode_gather_bytes,
                    kv_rows_gib=sum(t.numel() * t.element_size() for layer in eng.cache
-                                   for k, t in layer.items() if k in ("k", "v")) / 2**30)
+                                   for k, t in layer.items() if k in ("k", "v")) / 2**30,
+                   cross_rows_gib=sum(t.numel() * t.element_size() for layer in eng.cache
+                                      for k, t in layer.items() if k.startswith("cross_"))
+                   / 2**30)
     if extra is not None:
         rec.update(extra(eng, step_ms))
-    # a hybrid's attention layers take each of their three kernels
+    # a hybrid's attention layers take each of their three kernels; an
+    # enc-dec's B4 and B3 (B1 only where a prompt outgrows a chunk)
     hybrid = eng.two_call and cfg.n_attn_layers
+    needed = (("flash_attention", "decode_attention") if cfg.encdec else
+              ("flash_attention", "mixed_paged_attention", "decode_attention"))
     rec["ok"] = (done and counts == expect and plain_cuda == 0 and eng.nonfinite == 0
-                 and rec.get("a5_ok", True)
-                 and (not hybrid or all(expect[k] for k in ("flash_attention",
-                                                            "mixed_paged_attention",
-                                                            "decode_attention"))))
+                 and rec.get("a5_ok", True) and rec.get("extra_ok", True)
+                 and (not hybrid or all(expect[k] for k in needed)))
     emit(rec)
     if not rec["ok"]:
         raise AssertionError(f"{rec['phase']}: {rec}")
     del eng
     torch.cuda.empty_cache()
     if profile and attn_kernel != "dense":
-        profile_serve(torch, model, params, phase, [k for k, n in expect.items() if n])
+        profile_serve(torch, model, params, phase, [k for k, n in expect.items() if n], c,
+                      profile_lens)
     return rec
 
 
@@ -2723,7 +2819,11 @@ def expected_launches(cfg, plans, two_call, attn_kernel):
     from offset 0, B1 for a later one (the slot's row one page), B3 for the
     decode call and for a one-token segment; each Mamba2 layer B5 once a
     segment of more than one token (a one-token segment and the decode call
-    take the recurrent update, plain PyTorch); Mamba1 no kernel."""
+    take the recurrent update, plain PyTorch); Mamba1 no kernel. An
+    encoder-decoder's prefill segment also launches B4 once an encoder
+    layer (its frames) and, per decoder layer, its cross-attention once
+    more: B4 for more than one token, B3 for one; its decode call B3 twice a
+    decoder layer (self and cross)."""
     names = [fn.__name__ for fn in _wrappers_and_plain()[0]]
     expect = dict.fromkeys(names, 0)
     if not two_call:
@@ -2737,15 +2837,20 @@ def expected_launches(cfg, plans, two_call, attn_kernel):
     first = sum(s.start == 0 and s.length > 1 for s in segs)
     later = sum(s.start > 0 and s.length > 1 for s in segs)
     single = sum(s.length == 1 for s in segs)
+    decodes = sum(bool(p.decode_slots) for p in plans)
     expect.update(flash_attention=n_attn * first, mixed_paged_attention=n_attn * later,
-                  decode_attention=n_attn * (sum(bool(p.decode_slots) for p in plans) + single),
+                  decode_attention=n_attn * (decodes + single),
                   ssd_chunk_scan=n_m2 * (first + later))
+    if cfg.encdec:
+        expect["flash_attention"] += cfg.n_enc_layers * len(segs) + n_attn * (first + later)
+        expect["decode_attention"] += n_attn * (decodes + single)
     return expect
 
 
-def profile_serve(torch, model, params, phase, kernels):
-    """Where the device time of a serving run goes. One workload (a 2048- and
-    a 1024-token prompt, 16 new tokens each) runs twice on fresh engines:
+def profile_serve(torch, model, params, phase, kernels, c=SERVE, lens=(2048, 1024)):
+    """Where the device time of a serving run goes. One workload (prompts of
+    ``lens`` tokens, a 2048- and a 1024-token one by default, 16 new tokens
+    each, on ``c``'s engine settings) runs twice on fresh engines:
     untraced for its wall time, then under torch.profiler (device activity
     only) for device time summed by kernel (each of ``kernels``, the port's
     kernels of the path, named in the trace as ``TRACE_KEYS`` says; GEMMs;
@@ -2757,7 +2862,6 @@ def profile_serve(torch, model, params, phase, kernels):
     from repro_torch.core.scheduler import SchedulerConfig
     from repro_torch.serving.request import Request
 
-    c = SERVE
     cfg = model.cfg
 
     def engine():
@@ -2766,7 +2870,7 @@ def profile_serve(torch, model, params, phase, kernels):
             max_concurrent_prefills=c["max_prefills"], kv_block_size=c["page"],
             num_kv_blocks=2 * c["max_len"] // c["page"]), max_len=c["max_len"], device="cuda")
         rng = np.random.default_rng(1)
-        for rid, n in enumerate((2048, 1024)):
+        for rid, n in enumerate(lens):
             eng.submit(Request(rid=rid, prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
                                max_new_tokens=16))
         torch.cuda.synchronize()
@@ -2816,10 +2920,14 @@ def reduced_two_call(torch):
     dropless) with biases, norm scales and routers drawn from a seed
     (``_drawn_leaves``), whose attention layer launches B4 for a prompt's
     first chunk, B1 for a later chunk (the slot's row one page) and B3 for
-    the decode call and a one-token chunk. Slots are reused, and the
-    engine's chunks of 8 hand the state from segment to segment where the
-    serial path prefills each prompt in one call. Each kernel's launches on
-    the card equal ``expected_launches`` of the run's plans."""
+    the decode call and a one-token chunk; reduced whisper-small (2 encoder
+    and 2 decoder layers, ``frontend_len`` 8, biases and norm scales drawn),
+    each request with frame embeddings from a seed (std 1), whose encoder
+    and cross-attention add B4 (and B3 for a decode step's cross-attention).
+    Slots are reused, and the engine's chunks of 8 hand the state from
+    segment to segment where the serial path prefills each prompt in one
+    call. Each kernel's launches on the card equal ``expected_launches`` of
+    the run's plans."""
     import numpy as np
 
     from repro_torch.configs import get_config, reduce_config
@@ -2829,9 +2937,10 @@ def reduced_two_call(torch):
     from repro_torch.serving.request import Request
     from repro_torch.serving.serial import serial_reference
 
-    for arch in ("mamba2-2.7b", "jamba-v0.1-52b"):
-        hybrid = arch.startswith("jamba")
-        cfg = dropless(reduce_config(get_config(arch), periods=1 if hybrid else 2))
+    for arch in ("mamba2-2.7b", "jamba-v0.1-52b", "whisper-small"):
+        hybrid = arch != "mamba2-2.7b"  # attention layers beside the state
+        cfg = dropless(reduce_config(get_config(arch), periods=1 if arch.startswith("jamba")
+                                     else 2))
         cpu_model = build_model(cfg, dtype=torch.float32, device="cpu")
         gen = torch.Generator().manual_seed(0)
         params = cpu_model.init(gen)
@@ -2839,6 +2948,8 @@ def reduced_two_call(torch):
             params = _drawn_leaves(torch, params, gen)
         rng = np.random.default_rng(4)
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 9, 23, 100)]
+        frames = [rng.standard_normal((cfg.frontend_len, cfg.d_model)).astype(np.float32)
+                  if cfg.encdec else None for _ in prompts]
         new, max_len = 12, 128
         outs, steps, launches, expect, segments = {}, {}, {}, {}, {}
         plain = 0
@@ -2848,7 +2959,8 @@ def reduced_two_call(torch):
                 chunk_size=8, max_decode_batch=3, prefetch_buffer_bytes=1 << 20,
                 max_concurrent_prefills=2), max_len=max_len, device=device)
             for rid, prompt in enumerate(prompts):
-                eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new))
+                eng.submit(Request(rid=rid, prompt=prompt, max_new_tokens=new,
+                                   frames=frames[rid]))
             reset_counts()
             plans = []
             while eng.scheduler.has_work and eng.steps_run < 400:
@@ -2864,12 +2976,18 @@ def reduced_two_call(torch):
             steps[device] = eng.steps_run
         reset_counts()
         outs["serial_cuda"] = [serial_reference(model, _to(params, "cuda"), p, new,
-                                                max_len=max_len) for p in prompts]
+                                                max_len=max_len, frames=f)
+                               for p, f in zip(prompts, frames)]
         launches["serial_cuda"], p_calls = read_counts()
         plain += p_calls
         L, n_attn = cfg.n_layers, cfg.n_attn_layers
-        serial_expect = dict(launches["serial_cuda"], flash_attention=n_attn * len(prompts),
-                             decode_attention=n_attn * len(prompts) * (new - 1),
+        # an enc-dec prefill: B4 an encoder layer, and a decoder layer's
+        # self- and cross-attention; its decode step B3 twice a layer
+        per_attn = 2 if cfg.encdec else 1
+        serial_expect = dict(launches["serial_cuda"],
+                             flash_attention=(per_attn * n_attn + cfg.n_enc_layers)
+                             * len(prompts),
+                             decode_attention=per_attn * n_attn * len(prompts) * (new - 1),
                              ssd_chunk_scan=0 if hybrid else L * len(prompts))
         rec = dict(phase="reduced_two_call", arch=cfg.name, layers=L, attn_layers=n_attn,
                    dtype="float32", steps=steps, prefill_segments=segments["cuda"],
@@ -2879,8 +2997,8 @@ def reduced_two_call(torch):
                    engine_equals_serial_card=outs["cuda"] == outs["serial_cuda"])
         if hybrid:
             with router_margin(torch) as margin:
-                rec["min_top2_gap"] = min(_serial_gap(torch, cpu_model, params, p, new, max_len)
-                                          for p in prompts)
+                rec["min_top2_gap"] = min(_serial_gap(torch, cpu_model, params, p, new, max_len,
+                                                      f) for p, f in zip(prompts, frames))
             rec["min_router_margin"] = margin[0]
         rec["ok"] = (rec["engine_card_equals_cpu"] and rec["engine_equals_serial_card"]
                      and plain == 0 and not any(launches["cpu"].values())
@@ -3101,6 +3219,147 @@ def serial(torch, smi, model, params, served, c=SERVE, phase="serial"):
 # decodes are swapped out to the host and back; serve_prefix: SERVE's
 # settings over 8 prompts that share 2008 tokens (not a multiple of the
 # 16-token page: each resume copies its partial page)
+def _tree_shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _tree_shapes(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def serve_whisper(torch, smi):
+    """whisper-small at its published widths and depth (12 encoder and 12
+    decoder layers), bf16, weights drawn on the card from seed 0, through
+    the two-call engine on ``WHISPER_SERVE``: each request's 1500 frame
+    embeddings drawn from a seed at std 1, so that its audio moves its
+    tokens. Per prefill segment the encoder runs B4 without the causal mask
+    over the frames, each decoder layer's cross-attention B4 over the 1500
+    encoder keys and its self-attention B4 (B1 for a later chunk); a decode
+    call B3 twice a decoder layer. ``serve`` holds the launches to
+    ``expected_launches``; here the engine's tokens are also held to
+    ``serial_tokens`` on the card for every request, the smallest top-2
+    logit gap of those serial steps recorded. Then a profiled window
+    (prompts of 224 and 112 tokens, no frames: zeros, as the launcher's)."""
+    import numpy as np
+
+    from repro_torch.serving.serial import serial_tokens
+
+    c = WHISPER_SERVE
+    model, params, setup = full_model(torch, "whisper-small")
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    frames = [torch.randn((cfg.frontend_len, cfg.d_model), generator=gen, device="cuda")
+              .to(torch.bfloat16) for _ in range(c["requests"])]
+    prompts = serve_prompts(cfg.vocab_size, c)
+
+    def extra(eng, step_ms):
+        gaps, real = [], (model.prefill, model.decode_step)
+
+        def gap_of(fn):
+            def wrapped(*a, **kw):
+                logits, cache = fn(*a, **kw)
+                top = torch.topk(logits[0].float(), 2).values
+                gaps.append(float(top[0] - top[1]))
+                return logits, cache
+            return wrapped
+
+        model.prefill, model.decode_step = gap_of(real[0]), gap_of(real[1])
+        try:
+            t0 = time.perf_counter()
+            serial = [list(serial_tokens(model, params, p, c["max_new"], max_len=c["max_len"],
+                                         frames=f)) for p, f in zip(prompts, frames)]
+            serial_s = time.perf_counter() - t0
+        finally:
+            del model.prefill, model.decode_step  # the class's methods again
+        got = [eng.scheduler.requests[r].output for r in range(c["requests"])]
+        equal = [g == t for g, t in zip(got, serial)]
+        state = [t for layer in eng.cache for t in layer.values()]
+        return dict(engine_equals_serial=equal, serial_s=serial_s, min_top2_gap=min(gaps),
+                    frames_per_request=cfg.frontend_len,
+                    state_gib=sum(t.numel() * t.element_size() for t in state) / 2**30,
+                    extra_ok=all(equal))
+
+    rec = serve(torch, smi, model, params, setup, attn_kernel="auto", c=c, phase="serve_whisper",
+                prompts=prompts, frames=frames, extra=extra, profile_lens=(224, 112))
+    del model, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def serial_internvl2(torch, smi, model, params):
+    """internvl2-76b's backbone at 32 of its 80 layers on
+    ``serve_llama70b``'s resident weights (its backbone has llama3.1-70b's
+    widths; the two trees are first held key for key and shape for shape,
+    internvl2's built on the meta device, so no second copy is drawn): 2
+    requests of 256 seeded frontend embeddings and a 1024-token prompt, 16
+    new tokens each, through ``serial_tokens`` (B4 once a layer over the
+    1280-token prefill, B3 once a layer a decode step). Each request's
+    tokens must equal the argmax of one ``forward`` over [embeddings;
+    prompt; its tokens] at each position; the smallest top-2 gap there is
+    recorded."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import depth_cut
+    from repro_torch.models import build_model
+    from repro_torch.serving.serial import serial_tokens
+
+    c = INTERNVL2_SERIAL
+    cfg = depth_cut(get_config("internvl2-76b"), c["layers"])
+    meta = build_model(cfg, dtype=torch.bfloat16, device="meta").init(
+        torch.Generator().manual_seed(0))
+    same_tree = _tree_shapes(meta) == _tree_shapes(params)
+    del meta
+    if not same_tree:
+        raise AssertionError(f"serial_internvl2: {cfg.name}'s tree differs from {model.cfg.name}'s")
+    vl = build_model(cfg, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rng = np.random.default_rng(2)
+    F = cfg.frontend_len
+    runs = []
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(c["requests"]):
+        fe = torch.randn((F, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+        prompt = rng.integers(0, cfg.vocab_size, c["prompt"]).tolist()
+        toks = list(serial_tokens(vl, params, prompt, c["max_new"], max_len=c["max_len"],
+                                  frontend_embeds=fe))
+        runs.append((fe, prompt, toks))
+    run_s = time.perf_counter() - t0
+    counts, plain_cuda = read_counts()
+    expect = dict.fromkeys(counts, 0)
+    expect.update(flash_attention=cfg.n_layers * c["requests"],
+                  decode_attention=cfg.n_layers * c["requests"] * (c["max_new"] - 1))
+    checks = []
+    for fe, prompt, toks in runs:
+        tokens = torch.tensor([prompt + toks[:-1]], dtype=torch.int32, device="cuda")
+        logits = vl.forward(params, {"tokens": tokens, "frontend_embeds": fe[None]})
+        logits = logits[0, len(prompt) - 1:]
+        top = torch.topk(logits, 2, dim=-1).values
+        checks.append(dict(equal=logits.argmax(-1).tolist() == toks,
+                           min_top2_gap=float((top[:, 0] - top[:, 1]).min()),
+                           finite=bool(torch.isfinite(logits).all())))
+        del logits
+    published = get_config("internvl2-76b").n_layers
+    rec = dict(phase="serial_internvl2", arch=cfg.name, layers=cfg.n_layers,
+               published_layers=published,
+               reduced=[f"depth: {cfg.n_layers} of {published} layers"],
+               weights_from="serve_llama70b",
+               same_tree=same_tree, frontend_len=F, prompt=c["prompt"], requests=c["requests"],
+               max_new_tokens=c["max_new"], run_s=run_s,
+               tok_per_s=c["requests"] * (F + c["prompt"] + c["max_new"] - 1) / run_s,
+               kernel="flash_attention+decode_attention", launches_by_kernel=counts,
+               launches_expected=expect, plain_cuda_calls=plain_cuda, checks=checks,
+               outputs=[t for _, _, t in runs], nvidia_smi=smi)
+    rec["ok"] = (counts == expect and plain_cuda == 0
+                 and all(ch["equal"] and ch["finite"] for ch in checks))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"serial_internvl2: {rec}")
+    return rec
+
+
 SWAP_SCHED = dict(kv_capacity_tokens=8192, preemption="swap")
 PREFIX_REQUESTS = dict(n=8, shared_len=2008, unique_len=600, max_new_tokens=32, jitter=100,
                        seed=0)
@@ -3659,6 +3918,7 @@ def main() -> int:
     parity = kernel_parity(torch)
     parity.update(single_query_and_flash_parity(torch))
     parity.update(group_parity(torch))
+    parity.update(whisper_parity(torch))
     parity.update(ssd_parity(torch))
     b5_scratch_checks(torch)
     reduced_serve(torch)
@@ -3696,12 +3956,15 @@ def main() -> int:
     moe_layer(torch)
     mla_layer(torch)
     mamba1_layer(torch)
+    arch_runs.append(serve_whisper(torch, smi))
     for phase, arch, layers, profile in ARCH_SERVES:
         model, params, setup = full_model(torch, arch, layers)
         # the paged engine where the arch packs; jamba's hybrid the two-call path
         kernel = "paged" if supports_packed(model.cfg) else "auto"
         arch_runs.append(serve(torch, smi, model, params, setup, attn_kernel=kernel,
                                phase=phase, profile=profile))
+        if arch == "llama3.1-70b":  # internvl2's backbone on the same weights
+            arch_runs.append(serial_internvl2(torch, smi, model, params))
         del model, params
         torch.cuda.empty_cache()
 
@@ -3714,7 +3977,8 @@ def main() -> int:
                                                 "decode16_bf16", "decode_long_bf16",
                                                 "g6_mixed_bf16", "g6_decode16_bf16",
                                                 "g16_mixed_bf16", "g16_decode16_bf16",
-                                                "g8_kv4_mixed_bf16", "g8_kv4_decode16_bf16"]),
+                                                "g8_kv4_mixed_bf16", "g8_kv4_decode16_bf16",
+                                                "b1_whisper_row"]),
              "paged_attention": (served_dense, ["b2_dense_engine_bf16", "b2_dense_prefill_bf16",
                                                 "b2_gemma2_dense_engine_bf16",
                                                 "b2_gemma2_dense_prefill_bf16",
@@ -3723,10 +3987,12 @@ def main() -> int:
                                                 "b2_g16_dense_engine_bf16",
                                                 "b2_g16_dense_prefill_bf16"]),
              "decode_attention": (serial_rec, ["b3_serial_bf16", "b3_gemma2_serial_bf16",
-                                               "b3_g6_serial_bf16", "b3_batch_bf16"]),
+                                               "b3_g6_serial_bf16", "b3_batch_bf16",
+                                               "b3_whisper_cross", "b3_whisper_self"]),
              "flash_attention": (serial_rec, ["b4_prompt4096_bf16", "b4_prompt1000_bf16",
                                               "b4_gemma2_prompt6000_bf16",
-                                              "b4_g6_prompt4096_bf16", "b4_g16_prompt4096_bf16"]),
+                                              "b4_g6_prompt4096_bf16", "b4_g16_prompt4096_bf16",
+                                              "b4_whisper_encoder", "b4_whisper_cross"]),
              "ssd_chunk_scan": (served_mamba, ["b5_s512_bf16", "b5_s100_bf16"])}
     runs = [served, served_dense, serial_rec, served_mamba] + a5_runs + arch_runs
     lines = []

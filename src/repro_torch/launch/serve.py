@@ -11,11 +11,15 @@ divided by one page's full-stack KV bytes in the pool dtype
 dense-equivalent layout (``max_batch * max_len`` tokens). On the CPU the cap
 is the size. ``--num-kv-blocks`` overrides both. ``--attn-kernel dense``
 serves from a dense ``(max_batch + 1, max_len)`` slot cache instead and
-sizes no pool. An arch that cannot pack (``--arch mamba2-2.7b``, or the
-hybrid ``jamba-v0.1-52b``) runs the two-call path over a fixed ``(max_batch
-+ 1)``-row state and sizes no pool either, as the JAX launcher sizes one
-only where ``supports_packed`` holds; the launcher prints the state's bytes,
-a hybrid's dense K/V rows included. ``--layers N`` keeps an
+sizes no pool. An arch that cannot pack (``--arch mamba2-2.7b``, the
+hybrid ``jamba-v0.1-52b`` or the encoder-decoder ``whisper-small``) runs the
+two-call path over a fixed ``(max_batch + 1)``-row state and sizes no pool
+either, as the JAX launcher sizes one only where ``supports_packed`` holds;
+the launcher prints the state's bytes, a hybrid's dense K/V rows included,
+and for whisper the cross K/V rows' share (``cross=``). Its requests carry
+no frames, so each is encoded from zeros, as in the JAX launcher.
+``--arch internvl2-76b`` serves its backbone text-only on the packed path,
+as JAX's packed engine does. ``--layers N`` keeps an
 arch's published widths and runs its first N layers, for a model whose
 weights outgrow the card (llama3.1-70b: 141 GB in bf16). The flags mirror
 the JAX launcher's: ``--preemption swap`` parks preempted KV in pinned host
@@ -261,6 +265,10 @@ def main():
     if eng.two_call:  # a fixed state per slot: its bytes, not pool pages
         nbytes = sum(t.numel() * t.element_size() for layer in eng.cache for t in layer.values())
         memory = f"state={nbytes}B({pool_basis}:{device.type})"
+        if cfg.encdec:  # of which the decoder's cross K/V rows
+            cross = sum(t.numel() * t.element_size() for layer in eng.cache
+                        for k, t in layer.items() if k.startswith("cross_"))
+            memory += f" cross={cross}B"
     else:
         memory = (f"pool={alloc.peak_used_blocks}/{alloc.num_blocks}pages"
                   f"({pool_basis}:{device.type})")

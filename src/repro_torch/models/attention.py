@@ -35,7 +35,12 @@ rule for choosing them:
     tiles (``expanded_attention``), each tile's K/V expanded from its latent,
     the counterpart of JAX's ``flash_sdpa`` with ``kv_expand``.
 
-Not in this module yet: cross-attention and the sequence-parallel decode
+Full (non-causal) attention, JAX's ``_attend(..., causal=False)``, serves
+whisper's encoder (no cache: B4 over the frames' keys) and its decoder's
+cross-attention over the encoder's K/V (``cross_attn_apply``): B4 for a
+prompt's ``T > 1`` queries, B3 for a decode step's one query per row at
+``lengths`` = every encoder key. Not in this module yet: the
+sequence-parallel decode
 (ROADMAP.md A8).
 """
 from __future__ import annotations
@@ -178,11 +183,16 @@ def cache_call(index: Index, B: int, T: int, G: int, device) -> CacheCall:
 
 
 def _attend(q, k, v, window: Optional[int], cap: Optional[float],
-            call: Optional[CacheCall]):
+            call: Optional[CacheCall], causal: bool = True):
     """The kernel that computes this call's attention (its plain version on
     CPU tensors). q (B,T,H,d); k/v (B,S,KV,d): the call's own keys when
-    ``call`` is None, else the cache."""
+    ``call`` is None, else the cache. ``causal`` False: every query attends
+    every key, by B4, or by B3 over ``call.lengths`` for one query a row."""
     B, T, H, d = q.shape
+    if not causal:
+        if T == 1 and call is not None:
+            return ops.decode_attention_bhd(q, k, v, call.lengths, window=window, softcap=cap)
+        return ops.flash_attention_bshd(q, k, v, causal=False, window=window, softcap=cap)
     if call is None:
         return ops.flash_attention_bshd(q, k, v, causal=True, window=window, softcap=cap)
     if T == 1:
@@ -225,6 +235,53 @@ def attn_apply(params, cfg: ModelConfig, spec: LayerSpec, x, angles, *, cache=No
         out = _attend(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype), window, cap, call)
     y = dense(params["wo"], out.reshape(B, T, cfg.n_heads * hd))
     return y, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper's decoder) over K/V precomputed from the encoder
+# ---------------------------------------------------------------------------
+
+
+def cross_attn_init(cfg: ModelConfig, *, generator, dtype, device) -> dict:
+    """JAX's ``cross_attn_init`` leaves: ``wq`` and ``wv`` with biases where
+    the config has them, ``wk`` without one, and ``wo``."""
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    d, hd = cfg.d_model, cfg.head_dim
+    return {
+        "wq": dense_init(d, cfg.n_heads * hd, bias=cfg.qkv_bias, **kw),
+        "wk": dense_init(d, cfg.n_kv_heads * hd, **kw),
+        "wv": dense_init(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias, **kw),
+        "wo": dense_init(cfg.n_heads * hd, d, **kw),
+    }
+
+
+def cross_kv(params, cfg: ModelConfig, enc_out) -> dict:
+    """K and V (B, F, KV, d) of the encoder's output (B, F, d_model)."""
+    B, S, _ = enc_out.shape
+    k = dense(params["wk"], enc_out).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = dense(params["wv"], enc_out).view(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_call(B: int, n_keys: int, device) -> CacheCall:
+    """The ``CacheCall`` of a decode step's cross-attention: every row reads
+    all ``n_keys`` encoder keys (B3's lengths), built once per call."""
+    return CacheCall(None, lengths=torch.full((B,), n_keys, dtype=torch.int32, device=device))
+
+
+def cross_attn_apply(params, cfg: ModelConfig, x, kv, call: Optional[CacheCall] = None):
+    """x (B, T, d_model) over ``kv`` (``cross_kv``'s K and V, read in x's
+    dtype as JAX does), with no mask and no positions: B4 with ``causal``
+    off for T > 1, B3 for T == 1 over ``call``'s lengths (``cross_call``,
+    made here when None)."""
+    B, T, _ = x.shape
+    hd = cfg.head_dim
+    q = dense(params["wq"], x).view(B, T, cfg.n_heads, hd)
+    k, v = kv["k"].to(x.dtype), kv["v"].to(x.dtype)
+    if T == 1 and call is None:
+        call = cross_call(B, k.shape[1], x.device)
+    out = _attend(q, k, v, None, None, call, causal=False)
+    return dense(params["wo"], out.reshape(B, T, cfg.n_heads * hd))
 
 
 # ---------------------------------------------------------------------------

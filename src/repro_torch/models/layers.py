@@ -61,6 +61,21 @@ def rms_norm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (y * p["scale"].float()).to(x.dtype)
 
 
+def layer_norm_init(d: int, *, dtype, device):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (the population variance) and the
+    result cast back to the input's dtype."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = (x32 - mu).square().mean(dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"].float() + p["bias"].float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Softcap / activations
 # ---------------------------------------------------------------------------

@@ -23,12 +23,16 @@ which an eager step does not need, and padding rows would cost a decode-only
 step the matmuls of a full chunk. Segments and table columns keep the JAX
 engine's pow2 padding; zero-width segments and unused columns cost nothing.
 
-Archs that cannot pack (Mamba2, and jamba's Mamba1 hybrid; JAX also
-enc-dec) run JAX's two-call path instead (``_run_two_call``): one
+Archs that cannot pack (Mamba2, jamba's Mamba1 hybrid and whisper's
+encoder-decoder) run JAX's two-call path instead (``_run_two_call``): one
 ``Model.decode_step`` over the step's decode slots, then one
 ``Model.prefill`` per packed prefill segment, each over its slot's state in
 ``model.init_cache(n_slots + 1, max_len)``: a Mamba layer's ``{conv, ssm}``
-rows, a hybrid's attention layer's dense ``(max_len, KV, d)`` K/V rows. The
+rows, a hybrid's attention layer's dense ``(max_len, KV, d)`` K/V rows, an
+enc-dec decoder layer's self K/V rows beside its ``(F, KV, d)`` cross K/V
+rows. An enc-dec prefill segment encodes its request's ``frames`` (zeros
+where the request has none, as JAX's engine does) and writes the slot's
+cross K/V, on every segment as JAX does. The
 decode call works on the decode slots' rows in place when they are
 contiguous slots, and otherwise on a gathered copy of them that it writes
 back (``decode_gather_bytes`` counts what that copies). They have no page
@@ -60,9 +64,6 @@ step that would read pages whose transfer has not landed. Staged and direct
 restores scatter the same bytes, so greedy outputs are token-identical with
 async prefetch on or off. On the CPU the same code runs without streams,
 events or pinning, chosen by the engine's ``device``.
-
-Not ported yet, each raising ``NotImplementedError`` that names its ROADMAP
-item: the archs ``Model`` does not build (enc-dec).
 """
 from __future__ import annotations
 
@@ -748,8 +749,9 @@ class Engine:
         are independent, so the port decodes only the decoding slots' rows,
         in slot order: in place on a slice of the cache when those slots are
         contiguous, else on a gathered copy that it writes back. A prefill
-        runs on views of its slot's rows, which it updates in place. Returns
-        the (requests, logits rows) to sample."""
+        runs on views of its slot's rows, which it updates in place; an
+        enc-dec one also takes its request's frames. Returns the (requests,
+        logits rows) to sample."""
         sch = self.scheduler
         dev = self.device
         pending = []
@@ -786,9 +788,10 @@ class Engine:
                     for v in layer.values():
                         v.zero_()
             chunk = np.asarray(req.prefill_slice(seg.start, seg.length), np.int32)[None]
-            logits, _ = self.model.prefill(self.params,
-                                           {"tokens": torch.from_numpy(chunk).to(dev)}, sub,
-                                           seg.start)
+            batch = {"tokens": torch.from_numpy(chunk).to(dev)}
+            if self.cfg.encdec:
+                batch["frames"] = self.model.embeds_row(req.frames)
+            logits, _ = self.model.prefill(self.params, batch, sub, seg.start)
             if seg.finishes:
                 pending.append(([req], logits[:1]))
         return pending

@@ -5,6 +5,8 @@ this module never sees JAX. Period-stacked leaves — ``stack_init`` stacks
 each period position's parameters over the ``n_periods`` axis — are split
 back into one entry per layer, in layer order: the prefix layers first,
 then period ``c`` position ``i`` as layer ``n_prefix + c * period + i``.
+An encoder-decoder's ``enc`` and ``dec`` trees, stacked over their layers,
+become lists the same way.
 """
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ def _unstack_layers(stack, cfg: ModelConfig) -> List[Any]:
     return layers
 
 
+def _unstack(tree, n: int) -> List[Any]:
+    """A tree stacked over ``n`` layers on axis 0 -> one tree per layer."""
+    return [_map(tree, lambda a, _, i=i: np.asarray(a)[i]) for i in range(n)]
+
+
 def _tensor(dtype, device):
     return lambda a: torch.from_numpy(np.array(a, copy=True)).to(device=device, dtype=dtype)
 
@@ -55,13 +62,19 @@ def from_jax_params(tree, cfg: ModelConfig, *, dtype=torch.float32, device="cpu"
     def conv(a, key):
         return f32(a) if key in FP32_LEAVES else cast(a)
 
+    if cfg.encdec:  # encdec_init's tree: enc and dec stacked over layers
+        return {"enc": [_map(p, conv) for p in _unstack(tree["enc"], cfg.n_enc_layers)],
+                "dec": [_map(p, conv) for p in _unstack(tree["dec"], cfg.n_layers)],
+                **{k: _map(tree[k], conv) for k in ("enc_norm", "dec_norm", "embed",
+                                                    "pos_dec")}}
     params = {
         "embed": cast(tree["embed"]),
         "layers": [_map(layer, conv) for layer in _unstack_layers(tree["stack"], cfg)],
         "final_norm": _map(tree["final_norm"], conv),
     }
-    if "lm_head" in tree:
-        params["lm_head"] = cast(tree["lm_head"])
+    for key in ("lm_head", "pos"):  # untied heads; learned positions
+        if key in tree:
+            params[key] = cast(tree[key])
     return params
 
 
@@ -73,8 +86,16 @@ def caches_from_jax(cache, cfg: ModelConfig, *, dtype=torch.float32, device="cpu
     "krope"}`` of ``(pages, page, .)``), the dense cache of
     ``Model.init_cache`` (``{"k","v"}`` of ``(batch, max_len, KV, d)``;
     MLA's latent of ``(batch, max_len, .)``) in ``dtype``, and the Mamba
-    layers' ``{"conv", "ssm"}`` state, which stays fp32 as JAX keeps it."""
+    layers' ``{"conv", "ssm"}`` state, which stays fp32 as JAX keeps it. For
+    an encoder-decoder, ``dec_cache_init``'s ``{"self", "cross"}`` tree
+    (each stacked over the decoder layers) becomes one flat dict a layer,
+    ``{"k", "v", "cross_k", "cross_v"}``."""
     cast, f32 = _tensor(dtype, device), _tensor(torch.float32, device)
+    if cfg.encdec:
+        return [{"k": cast(s["k"]), "v": cast(s["v"]),
+                 "cross_k": cast(c["k"]), "cross_v": cast(c["v"])}
+                for s, c in zip(_unstack(cache["self"], cfg.n_layers),
+                                _unstack(cache["cross"], cfg.n_layers))]
 
     def conv(a, key):
         return f32(a) if key in ("conv", "ssm") else cast(a)

@@ -26,6 +26,7 @@ COPIES = [
     "configs/reduced.py", "configs/gemma2_2b.py", "configs/qwen2_1_5b.py",
     "configs/chatglm3_6b.py", "configs/qwen3_32b.py", "configs/llama3_1_70b.py",
     "configs/qwen3_moe_30b_a3b.py", "configs/deepseek_v2_236b.py", "configs/jamba_v0_1_52b.py",
+    "configs/whisper_small.py", "configs/internvl2_76b.py",
     "serving/request.py", "serving/metrics.py", "serving/workload.py",
     "memory/__init__.py", "memory/block_allocator.py", "memory/tiers.py",
     "memory/prefix_cache.py", "memory/manager.py", "memory/prefetch_queue.py",

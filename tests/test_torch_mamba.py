@@ -13,14 +13,10 @@ unless a test says otherwise.
 * the weight and state bridge, and its fp32 leaves in a bf16 model;
 * greedy tokens of the two-call ``Engine`` equal to the JAX ``Engine``'s on
   the two mamba2-2.7b workloads of ``test_engine.py`` and to the port's
-  serial path;
-* configs whose model path is not ported (enc-dec) raise, naming their
-  ROADMAP item (Mamba1, which jamba runs, has its own tests in
+  serial path (Mamba1, which jamba runs, has its own tests in
   ``test_torch_mamba1.py`` and ``test_torch_jamba_engine.py``).
 """
 from __future__ import annotations
-
-import dataclasses
 
 import pytest
 
@@ -39,7 +35,6 @@ from repro.serving.engine import Engine as JaxEngine  # noqa: E402
 from repro.serving.request import Request as JaxRequest  # noqa: E402
 from repro_torch.configs import get_config as t_get_config  # noqa: E402
 from repro_torch.configs import reduce_config as t_reduce_config  # noqa: E402
-from repro_torch.configs.base import LayerSpec, ModelConfig  # noqa: E402
 from repro_torch.core.scheduler import SchedulerConfig  # noqa: E402
 from repro_torch.launch.serve import sized_kv_pool  # noqa: E402
 from repro_torch.models import build_model, mamba  # noqa: E402
@@ -284,18 +279,3 @@ def test_launcher_sizes_no_kv_pool_without_attention():
     assert cfg.n_attn_layers == 0
     with pytest.raises(ValueError, match="no attention layers"):
         sized_kv_pool(cfg, torch.device("cpu"), torch.bfloat16, 8, 8192, 16)
-
-
-def _port_config(arch):
-    """The JAX package's config of ``arch`` as the port's ``ModelConfig``
-    (the port registers only the archs it serves)."""
-    cfg = reduce_config(get_config(arch))
-    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
-    kw["layer_specs"] = tuple(LayerSpec(**dataclasses.asdict(s)) for s in cfg.layer_specs)
-    return ModelConfig(**kw)
-
-
-@pytest.mark.parametrize("arch,names", [("whisper-small", "encoder-decoder")])
-def test_unported_archs_raise_naming_their_roadmap_item(arch, names):
-    with pytest.raises(NotImplementedError, match=rf"{names}.*ROADMAP\.md A9"):
-        build_model(_port_config(arch), device="cpu")
